@@ -1,0 +1,388 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (city_rollup_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+In order, it:
+  1. prints the card's name and power limit (nvidia-smi);
+  2. builds the CUDA kernels from city_rollup_tpu_torch/csrc/ (nvcc, one
+     process per source, all started together);
+  3. holds each kernel bit for bit against its plain PyTorch version on the
+     card, at the shapes the commit path gives it and at edge values;
+  4. holds the 2^10 x 16 seed-7 cap against GOLDEN_CAP, the reference
+     package's output for the same input (pinned by
+     tests/test_torch_pipeline.py);
+  5. drives the main path once with every launch count set to 0: lde_commit
+     at 2^20 x 64 and lde_commit_streamed at 2^22 x 64 (rate_bits 3,
+     cap_height 4), then holds streamed == one-shot at 2^20 x 64;
+  6. times each kernel, its plain version and its bound;
+and prints one JSON line of kernels, then as its last line
+{"ok": true, "device": {...}}. Any failure raises, and the exit code is then
+non-zero. Without CUDA, or without the port's package beside it, it fails
+before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# lde_commit(seed-7 (16, 2^10) coefficients, rate_bits=3, cap_height=4) of the
+# reference package: rng = np.random.default_rng(7);
+# rng.integers(0, p, size=(16, 1 << 10), dtype=np.uint64).
+GOLDEN_CAP = [
+    [11124996842486871537, 10833226710434570248, 334947422782506836,
+     7324785774463782700],
+    [12116386283352661960, 14572115498849026540, 3137748986343091037,
+     1304443284651871459],
+    [1285419751905360104, 8515709841998993865, 5232441924630985373,
+     10731464001642126370],
+    [921681907808615568, 13614237725161628466, 7556640878426855404,
+     15667972229409145603],
+    [18110795192343001320, 16876325810625285586, 6389919662479316352,
+     14365175204868636465],
+    [6587463079462474938, 18229493583769498929, 8029539611463489431,
+     6244683394304848565],
+    [5881539990576622936, 16623942268915977758, 8208850414919324351,
+     3139811855568406526],
+    [2847808961485792819, 13099154217433896463, 10607595661719848756,
+     4188086017798558097],
+    [12832247690296705220, 15847351210345129980, 14499718918289721065,
+     1069968029294636718],
+    [17315346944395933855, 626757209227384649, 6221817845828124801,
+     15781429029086660173],
+    [2731397667907347310, 7503946682576353579, 12014580744366564829,
+     1477600393405705802],
+    [16284171226313858328, 628795544168661531, 12059498054992212474,
+     6214877434631526776],
+    [15833012049825875419, 17614137492766471773, 3712483260403742995,
+     12403048936786055368],
+    [5102577065230592266, 5110988086667735555, 16055412538870542304,
+     4028766581770013121],
+    [2223793420804954971, 652752460381871701, 8744696652168684216,
+     12487654981067301618],
+    [4779777903681048061, 5962994489761700447, 1364215374758113891,
+     8413657776722638697],
+]
+
+RATE_BITS, CAP_HEIGHT = 3, 4
+P = 0xFFFF_FFFF_0000_0001
+
+# Bounds (H100 SXM datasheet peaks at 700 W): 3.35 TB/s of device
+# memory, and 67e12 operations/s outside the tensor cores (the float32 rate,
+# a multiply-add counted as 2). There is no faster rate for 32-bit integer
+# work on the CUDA cores, so the integer bound below is a lower bound.
+MEM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+# Operations counted: a Goldilocks multiply is four 32x32 -> 64 products of
+# two multiply-adds each (16 operations); an MDS entry times a u64 is two
+# multiply-adds (4 operations). Adds, compares and reductions are not
+# counted, so the count is a lower bound.
+OPS_MULMOD = 16
+OPS_MDS_ENTRY = 4
+OPS_PERMUTATION = (8 * 12 * 4 + 22 * 4) * OPS_MULMOD + 30 * 144 * OPS_MDS_ENTRY
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps launches, after one warm-up."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest |got - want| over the u64 values; 0 when bit for bit equal."""
+    if torch.equal(got, want):
+        return 0
+    bad = got != want
+    g = got[bad].cpu().numpy().view(np.uint64).astype(object)
+    w = want[bad].cpu().numpy().view(np.uint64).astype(object)
+    return max(abs(int(a) - int(b)) for a, b in zip(g, w))
+
+
+def require_equal(got, want, what: str) -> None:
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"{what}: kernel disagrees with its plain "
+                             f"version (max abs err {err})")
+    log(f"check {what}: bit for bit")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    root = Path(__file__).resolve().parent
+    if not (root / "city_rollup_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: city_rollup_tpu_torch/ is not beside this script",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root))
+    from city_rollup_tpu_torch import _build, convert, pipeline
+    from city_rollup_tpu_torch.core import cuda_ntt as cn
+    from city_rollup_tpu_torch.core import cuda_poseidon as cp
+    from city_rollup_tpu_torch.core import ntt as tn
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "--id=0"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    log("torch", torch.__version__, "cuda", torch.version.cuda)
+
+    # --- build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    logs = _build.build()
+    log(f"phase build {time.perf_counter() - t0:.3f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "Compiling entry" in line or "registers" in line:
+                log(f"  {name}: {line.strip()}")
+
+    rng = np.random.default_rng(0)
+
+    def rand(shape):
+        return convert.from_u64(
+            rng.integers(0, P, size=shape, dtype=np.uint64), dev)
+
+    edge = [0, 1, P - 1, (1 << 32) - 1, 1 << 32, 1 << 63]
+
+    def with_edges(x):
+        for j, v in enumerate(edge):
+            x[:, j] = v - (1 << 64) if v >= 1 << 63 else v
+            if j < x.shape[0]:
+                x[j, 64:128] = x[0, j]
+        return x
+
+    # --- kernels against their plain versions ------------------------------
+    t0 = time.perf_counter()
+    for log_m, batch in [(14, 3), (23, 1)]:
+        log_n2 = cn._split(log_m)
+        log_n1 = log_m - log_n2
+        ks1 = min(log_n1, cn.MAX_KERNEL_LOG)
+        a = with_edges(rand((batch << log_n1, 1 << log_n2)))
+        tw2 = cn._stage_table(log_n2, False, dev)
+        g = convert.from_u64(cn._gcol(log_m, log_n2, batch, batch << log_n1,
+                                      False), dev)
+        require_equal(cn._block_stages(a, tw2, g, log_n2),
+                      cn._block_stages_plain(a, tw2, g, log_n2),
+                      f"ntt_fourstep_tw log_m={log_m} batch={batch}")
+        b = with_edges(rand((batch << log_n2, 1 << log_n1)))
+        tw1 = cn._stage_table(ks1, False, dev)
+        require_equal(cn._block_stages(b, tw1, None, ks1),
+                      cn._block_stages_plain(b, tw1, None, ks1),
+                      f"ntt_block log_m={log_m} batch={batch}")
+        x = rand((batch, 1 << log_m))
+        require_equal(tn.ntt(x, log_m),
+                      tn._ntt_core(x, tn._root_table(log_m, False, dev),
+                                   log_m),
+                      f"four-step ntt == radix-2 log_m={log_m} batch={batch}")
+    saved = cn.MAX_KERNEL_LOG
+    cn.MAX_KERNEL_LOG = 5           # log_m 14 -> 5 block + 4 tail stages
+    try:
+        x = rand((3, 1 << 14))
+        require_equal(tn.ntt(x, 14),
+                      tn._ntt_core(x, tn._root_table(14, False, dev), 14),
+                      "ntt with tail stages (MAX_KERNEL_LOG=5)")
+    finally:
+        cn.MAX_KERNEL_LOG = saved
+    for n in (8, 10, 64):
+        x = with_edges(rand((n, 1 << 14)))
+        require_equal(cp.sponge_t(x), cp.sponge_t_plain(x),
+                      f"poseidon_sponge n={n}")
+    for k in (3, 8):
+        s = with_edges(rand((12, 1 << 14)))
+        c = with_edges(rand((k, 1 << 14)))
+        require_equal(cp.absorb_t(s, c), cp.absorb_t_plain(s, c),
+                      f"poseidon_absorb k={k}")
+    torch.cuda.synchronize()
+    log(f"phase kernel checks {time.perf_counter() - t0:.3f} s")
+
+    # --- golden cap ----------------------------------------------------------
+    golden = np.array(GOLDEN_CAP, dtype=np.uint64)
+    sv = np.random.default_rng(7).integers(0, P, size=(16, 1 << 10),
+                                           dtype=np.uint64)
+    for fn in (pipeline.lde_commit, pipeline.lde_commit_streamed):
+        cap = convert.to_u64(fn(sv, log_n=10, rate_bits=RATE_BITS,
+                                cap_height=CAP_HEIGHT))
+        if not np.array_equal(cap, golden):
+            raise AssertionError(f"{fn.__name__} 2^10 x 16: cap differs "
+                                 "from the reference's")
+        log(f"check {fn.__name__} 2^10 x 16 seed 7: equals the golden cap")
+
+    # --- the main path, once, counted --------------------------------------
+    c20 = rand((64, 1 << 20))
+    c22 = rand((64, 1 << 22))
+    torch.cuda.synchronize()
+    for counts in (cn.LAUNCHES, cp.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    torch.cuda.reset_peak_memory_stats()
+    caps = {}
+    before = {**cn.LAUNCHES, **cp.LAUNCHES}
+    for name, fn, x in [
+            ("lde_commit 2^20 x 64", pipeline.lde_commit, c20),
+            ("lde_commit_streamed 2^22 x 64", pipeline.lde_commit_streamed,
+             c22)]:
+        t0 = time.perf_counter()
+        caps[name] = fn(x, log_n=x.shape[1].bit_length() - 1,
+                        rate_bits=RATE_BITS, cap_height=CAP_HEIGHT)
+        torch.cuda.synchronize()
+        log(f"phase {name} {time.perf_counter() - t0:.6f} s (first call)")
+        now = {**cn.LAUNCHES, **cp.LAUNCHES}
+        log(f"launches in {name}: "
+            f"{json.dumps({k: now[k] - before[k] for k in now})}")
+        before = now
+    launches = {**cn.LAUNCHES, **cp.LAUNCHES}
+    log(f"main path launches {json.dumps(launches)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    zero = [k for k, v in launches.items() if v == 0]
+    if zero:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{zero}")
+    for name, cap in caps.items():
+        u = convert.to_u64(cap)
+        if u.shape != (1 << CAP_HEIGHT, 4) or (u >= P).any():
+            raise AssertionError(f"{name}: malformed cap {u.shape}")
+
+    # second calls: warm times, outside the counted run
+    for name, fn, x in [
+            ("lde_commit 2^20 x 64", pipeline.lde_commit, c20),
+            ("lde_commit_streamed 2^22 x 64", pipeline.lde_commit_streamed,
+             c22)]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = fn(x, log_n=x.shape[1].bit_length() - 1,
+                   rate_bits=RATE_BITS, cap_height=CAP_HEIGHT)
+        torch.cuda.synchronize()
+        log(f"phase {name} {time.perf_counter() - t0:.6f} s (warm)")
+        if not torch.equal(again, caps[name]):
+            raise AssertionError(f"{name}: second call differs")
+    del c22
+    t0 = time.perf_counter()
+    streamed20 = pipeline.lde_commit_streamed(
+        c20, log_n=20, rate_bits=RATE_BITS, cap_height=CAP_HEIGHT)
+    torch.cuda.synchronize()
+    log(f"phase lde_commit_streamed 2^20 x 64 "
+        f"{time.perf_counter() - t0:.6f} s")
+    if not torch.equal(streamed20, caps["lde_commit 2^20 x 64"]):
+        raise AssertionError("streamed != one-shot at 2^20 x 64")
+    log("check lde_commit_streamed == lde_commit at 2^20 x 64")
+    del c20
+
+    # --- per-kernel times at the main path's shapes --------------------------
+    kernels = []
+
+    def measure(name, source, replaces, shape, kernel, plain, reps,
+                nbytes, ops):
+        got = kernel()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"{name} at {shape}: max abs err {err}")
+        del got, want
+        ms = cuda_ms(kernel, reps)
+        t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+        t_ops = ops / OPS_PER_S * 1e3
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "shape": shape})
+        log(f"time {name} {shape}: {ms:.4f} ms, plain {plain_s * 1e3:.1f} "
+            f"ms, bound {max(t_bytes, t_ops):.4f} ms")
+        torch.cuda.empty_cache()
+
+    # the NTT kernels at one 8-poly slab of the 2^22 streamed commit (log_m 25)
+    log_m = 22 + RATE_BITS
+    log_n2 = cn._split(log_m)
+    log_n1 = log_m - log_n2
+    ks1 = min(log_n1, cn.MAX_KERNEL_LOG)
+    n_val = 8 << log_m
+    a = rand((8 << log_n1, 1 << log_n2))
+    tw2 = cn._stage_table(log_n2, False, dev)
+    g = convert.from_u64(cn._gcol(log_m, log_n2, 8, 8 << log_n1, False), dev)
+    measure("ntt_fourstep_tw", "city_rollup_tpu_torch/csrc/ntt.cu",
+            "city_rollup_tpu/core/pallas_ntt.py:183",
+            list(a.shape),
+            lambda: cn._block_stages(a, tw2, g, log_n2),
+            lambda: cn._block_stages_plain(a, tw2, g, log_n2), 5,
+            16 * n_val + 8 * (g.numel() + tw2.numel()),
+            (log_n2 * n_val // 2 + n_val) * OPS_MULMOD)
+    del a, g
+    b = rand((8 << log_n2, 1 << log_n1))
+    tw1 = cn._stage_table(ks1, False, dev)
+    measure("ntt_block", "city_rollup_tpu_torch/csrc/ntt.cu",
+            "city_rollup_tpu/core/pallas_ntt.py:176",
+            list(b.shape),
+            lambda: cn._block_stages(b, tw1, None, ks1),
+            lambda: cn._block_stages_plain(b, tw1, None, ks1), 5,
+            16 * n_val + 8 * tw1.numel(),
+            ks1 * n_val // 2 * OPS_MULMOD)
+    if log_n1 > ks1:
+        tt1 = cn._stage_table(log_n1, False, dev)
+        s = ks1
+        measure("ntt_tail_stage", "city_rollup_tpu_torch/csrc/ntt.cu",
+                "city_rollup_tpu/core/pallas_ntt.py:204",
+                list(b.shape) + [f"stage {s}"],
+                lambda: cn._tail_stage(b, s, log_n1, tt1),
+                lambda: cn._tail_stage_plain(b, s, log_n1, tt1), 5,
+                16 * n_val + 8 * (1 << s), n_val // 2 * OPS_MULMOD)
+    del b
+    # the leaf hash of the 2^20 x 64 one-shot commit
+    leaves = rand((64, 1 << 23))
+    measure("poseidon_sponge", "city_rollup_tpu_torch/csrc/poseidon.cu",
+            "city_rollup_tpu/core/pallas_poseidon.py:190",
+            list(leaves.shape),
+            lambda: cp.sponge_t(leaves), lambda: cp.sponge_t_plain(leaves), 3,
+            8 * (64 + 4) << 23, 8 * OPS_PERMUTATION << 23)
+    del leaves
+    # one slab absorb of the streamed commit at 2^20 x 64 (M = 2^23)
+    state, slab = rand((12, 1 << 23)), rand((8, 1 << 23))
+    measure("poseidon_absorb", "city_rollup_tpu_torch/csrc/poseidon.cu",
+            "city_rollup_tpu/core/pallas_poseidon.py:207",
+            [list(state.shape), list(slab.shape)],
+            lambda: cp.absorb_t(state, slab),
+            lambda: cp.absorb_t_plain(state, slab), 5,
+            8 * (12 + 8 + 12) << 23, OPS_PERMUTATION << 23)
+    del state, slab
+
+    missing = set(launches) - {k["name"] for k in kernels}
+    if missing:
+        raise AssertionError(f"no timing for {sorted(missing)}")
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

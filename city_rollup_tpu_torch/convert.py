@@ -1,0 +1,55 @@
+"""Carry values across between the reference and the port.
+
+The port holds a Goldilocks value as one ``torch.int64`` element whose bits
+are the u64 value. The reference (``city_rollup_tpu``) holds it as a
+``(lo, hi)`` pair of uint32 arrays. Tests feed both sides the same numpy
+inputs through these functions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import device as _device
+
+_MASK32 = np.uint64(0xFFFFFFFF)
+
+
+def from_u64(x, device=None) -> torch.Tensor:
+    """numpy uint64 array (or array-like of ints < 2^64) -> int64 tensor."""
+    arr = np.ascontiguousarray(np.asarray(x, dtype=np.uint64))
+    t = torch.from_numpy(arr.view(np.int64).copy())
+    return t.to(_device(device))
+
+
+def to_u64(t: torch.Tensor) -> np.ndarray:
+    """int64 tensor (any device) -> numpy uint64 array on the host."""
+    if t.dtype != torch.int64:
+        raise TypeError(f"expected int64, got {t.dtype}")
+    return t.detach().cpu().contiguous().numpy().view(np.uint64).copy()
+
+
+def from_jax_pair(lo, hi, device=None) -> torch.Tensor:
+    """The reference's (lo, hi) uint32 pair -> int64 tensor."""
+    lo = np.asarray(lo, dtype=np.uint64)
+    hi = np.asarray(hi, dtype=np.uint64)
+    return from_u64(lo | (hi << np.uint64(32)), device)
+
+
+def to_jax_pair(t: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """int64 tensor -> the reference's (lo, hi) uint32 pair (numpy)."""
+    x = to_u64(t)
+    return ((x & _MASK32).astype(np.uint32),
+            (x >> np.uint64(32)).astype(np.uint32))
+
+
+def as_tensor(x, device=None) -> torch.Tensor:
+    """An entry point's input on the device it runs on: a numpy uint64
+    array is converted, a tensor is moved (int64 only)."""
+    dev = _device(device)
+    if isinstance(x, torch.Tensor):
+        if x.dtype != torch.int64:
+            raise TypeError(f"expected int64, got {x.dtype}")
+        return x.to(dev)
+    return from_u64(x, dev)

@@ -1,0 +1,134 @@
+"""Poseidon sponge and absorb in the transposed layout, with CUDA kernels.
+
+Counterpart of the reference's ``core/pallas_poseidon.py``: arrays are
+(rows, B) int64 tensors in which column j is one sponge input, so the LDE's
+(num_polys, M) output hashes all M leaves with no transpose.
+
+``sponge_t`` (kernel K4, ``csrc/poseidon.cu`` sponge_kernel) and
+``absorb_t`` (K5, absorb_kernel) launch their kernels on a CUDA tensor, run
+their plain PyTorch versions on a CPU tensor, and count their launches in
+``LAUNCHES``. The permutation kernel of the reference (``permute_t``) is
+ported with the FRI slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from . import poseidon
+from . import poseidon_params as params
+
+WIDTH = params.WIDTH
+RATE = params.SPONGE_RATE
+
+# Launches of each kernel, counted where the wrapper launches it.
+LAUNCHES = {"poseidon_sponge": 0, "poseidon_absorb": 0}
+
+_RC_HOST = np.array(params.ALL_ROUND_CONSTANTS, dtype=np.uint64)
+_INITIALIZED: set = set()
+
+
+def _lib(t: torch.Tensor):
+    """The Poseidon library, with the round constants copied to t's device."""
+    lib = _build.load("poseidon")
+    dev = t.device.index if t.device.index is not None \
+        else torch.cuda.current_device()
+    if dev not in _INITIALIZED:
+        with torch.cuda.device(dev):
+            _build.check(lib.city_poseidon_init(_RC_HOST.ctypes.data),
+                         "city_poseidon_init")
+        _INITIALIZED.add(dev)
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the kernels
+# ---------------------------------------------------------------------------
+
+def sponge_t_plain(x_t: torch.Tensor) -> torch.Tensor:
+    """Overwrite-mode sponge down each column: (n, B) -> (4, B)."""
+    n, b = x_t.shape
+    s = x_t.new_zeros((WIDTH, b))
+    for start in range(0, n, RATE):
+        k = min(RATE, n - start)
+        s = torch.cat([x_t[start:start + k], s[k:]])
+        s = poseidon.permute_t(s)
+    return s[:4]
+
+
+def absorb_t_plain(state_t: torch.Tensor,
+                   chunk_t: torch.Tensor) -> torch.Tensor:
+    """Overwrite state rows [0, k) with the chunk, then permute."""
+    k = chunk_t.shape[0]
+    return poseidon.permute_t(torch.cat([chunk_t, state_t[k:]]))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def sponge_t(x_t: torch.Tensor) -> torch.Tensor:
+    """K4: sponge-hash every column of (n, B) into a (4, B) digest."""
+    if x_t.dim() != 2:
+        raise ValueError(f"expected (n, B), got {tuple(x_t.shape)}")
+    if not x_t.is_cuda:
+        return sponge_t_plain(x_t)
+    x_t = x_t.contiguous()
+    _build.require_cuda("poseidon_sponge", x_t)
+    n, b = x_t.shape
+    lib = _lib(x_t)
+    out = x_t.new_empty((4, b))
+    rc = lib.city_poseidon_sponge(x_t.data_ptr(), out.data_ptr(), n, b,
+                                  _build.stream(x_t))
+    _build.check(rc, "city_poseidon_sponge")
+    LAUNCHES["poseidon_sponge"] += 1
+    return out
+
+
+def absorb_t(state_t: torch.Tensor, chunk_t: torch.Tensor) -> torch.Tensor:
+    """K5: state (12, B) x chunk (k <= 8, B) -> permuted state (12, B)."""
+    k = chunk_t.shape[0]
+    if state_t.dim() != 2 or state_t.shape[0] != WIDTH or \
+            chunk_t.dim() != 2 or not 0 < k <= RATE or \
+            chunk_t.shape[1] != state_t.shape[1]:
+        raise ValueError(f"bad absorb shapes {tuple(state_t.shape)}, "
+                         f"{tuple(chunk_t.shape)}")
+    if not state_t.is_cuda:
+        return absorb_t_plain(state_t, chunk_t)
+    state_t, chunk_t = state_t.contiguous(), chunk_t.contiguous()
+    _build.require_cuda("poseidon_absorb", state_t, chunk_t)
+    lib = _lib(state_t)
+    out = torch.empty_like(state_t)
+    rc = lib.city_poseidon_absorb(state_t.data_ptr(), chunk_t.data_ptr(),
+                                  out.data_ptr(), k, state_t.shape[1],
+                                  _build.stream(state_t))
+    _build.check(rc, "city_poseidon_absorb")
+    LAUNCHES["poseidon_absorb"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Transposed entry points (twins of pallas_poseidon's)
+# ---------------------------------------------------------------------------
+
+def hash_rows_t(leaf_t: torch.Tensor) -> torch.Tensor:
+    """Sponge-hash columns: (n, B) -> (4, B) digests.
+
+    Follows plonky2 hash_or_noop: n <= 4 passes through zero-padded."""
+    n = leaf_t.shape[0]
+    if n <= 4:
+        return torch.cat([leaf_t, leaf_t.new_zeros((4 - n,) + leaf_t.shape[1:])])
+    return sponge_t(leaf_t)
+
+
+def two_to_one_t(left_t: torch.Tensor, right_t: torch.Tensor) -> torch.Tensor:
+    """Merkle compress, transposed: (4, B) x (4, B) -> (4, B)."""
+    return sponge_t(torch.cat([left_t, right_t]))
+
+
+def reduce_level_t(d_t: torch.Tensor) -> torch.Tensor:
+    """One Merkle level, transposed: (4, 2B) digests -> (4, B) parents.
+    Children are adjacent columns (2j, 2j+1)."""
+    return two_to_one_t(d_t[:, 0::2], d_t[:, 1::2])

@@ -1,0 +1,101 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here carries the ``cuda`` marker and skips without a GPU. The
+file imports neither JAX nor the reference package, so it also runs on a
+machine that has only PyTorch:
+
+    CITY_TPU_TESTS=1 python -m pytest -m cuda tests/test_torch_cuda.py -q
+
+(CITY_TPU_TESTS=1 keeps tests/conftest.py from configuring JAX.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from city_rollup_tpu_torch import convert
+from city_rollup_tpu_torch.core import cuda_ntt as cn
+from city_rollup_tpu_torch.core import cuda_poseidon as cp
+from city_rollup_tpu_torch.core import gl64
+from city_rollup_tpu_torch.core import ntt as tn
+from city_rollup_tpu_torch.core import poseidon as tposeidon
+
+P = gl64.P
+EDGE = [0, 1, P - 1, (1 << 32) - 1, 1 << 32, 1 << 63]
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    return torch.device("cuda")
+
+
+def _rand(shape, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, P, size=shape, dtype=np.uint64)
+
+
+def _cols(n, b, seed):
+    """(n, b) uint64: random columns, then edge-valued columns and rows."""
+    x = _rand((n, b), seed)
+    for j, v in enumerate(EDGE):
+        x[:, j] = v
+        if j < n:
+            x[j, len(EDGE):len(EDGE) + 8] = v
+    return x
+
+
+@pytest.mark.parametrize("ks,rows", [(3, 5), (11, 64), (12, 16)])
+def test_block_kernels_match_plain(cuda, ks, rows):
+    x = convert.from_u64(_cols(rows, 1 << ks, seed=ks), cuda)
+    g = convert.from_u64(_rand((rows,), seed=ks + 1), cuda)
+    tw = cn._stage_table(ks, False, cuda)
+    for seeds in (g, None):
+        got = cn._block_stages(x, tw, seeds, ks)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cn._block_stages_plain(x, tw, seeds, ks))
+
+
+def test_tail_kernel_matches_plain(cuda):
+    x = convert.from_u64(_rand((6, 1 << 13), seed=5), cuda)
+    tt = cn._stage_table(13, False, cuda)
+    for s in (0, 12):
+        got = cn._tail_stage(x, s, 13, tt)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cn._tail_stage_plain(x, s, 13, tt))
+
+
+def test_fourstep_kernels_match_radix2(cuda, monkeypatch):
+    vals = _rand((3, 1 << 14), seed=14)
+    x = convert.from_u64(vals, cuda)
+    want = tn._ntt_core(x, tn._root_table(14, False, cuda), 14)
+    assert torch.equal(tn.ntt(x, 14), want)
+    np.testing.assert_array_equal(convert.to_u64(tn.intt(want, 14)), vals)
+    monkeypatch.setattr(cn, "MAX_KERNEL_LOG", 5)     # 4 tail stages
+    assert torch.equal(tn.ntt(x, 14), want)
+
+
+@pytest.mark.parametrize("n", [3, 8, 10, 64])
+def test_sponge_kernel_matches_plain(cuda, n):
+    x = convert.from_u64(_cols(n, 1 << 14, seed=n), cuda)
+    got = cp.sponge_t(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cp.sponge_t_plain(x))
+
+
+@pytest.mark.parametrize("k", [3, 8])
+def test_absorb_kernel_matches_plain(cuda, k):
+    state = convert.from_u64(_cols(12, 1 << 14, seed=k), cuda)
+    chunk = convert.from_u64(_cols(k, 1 << 14, seed=k + 1), cuda)
+    got = cp.absorb_t(state, chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cp.absorb_t_plain(state, chunk))
+
+
+def test_permute_on_cuda_waits_for_its_kernel(cuda):
+    with pytest.raises(NotImplementedError):
+        tposeidon.permute(torch.zeros(4, 12, dtype=torch.int64,
+                                      device=cuda))

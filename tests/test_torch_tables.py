@@ -1,0 +1,131 @@
+"""The port's copied tables and constants equal the reference's, and the
+port imports neither JAX nor the reference package."""
+
+import ast
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from city_rollup_tpu.core import ntt as jntt
+from city_rollup_tpu.core import pallas_ntt as pn
+from city_rollup_tpu.core import poseidon_host as j_host
+from city_rollup_tpu.core import poseidon_params as j_params
+from city_rollup_tpu_torch.core import cuda_ntt as cn
+from city_rollup_tpu_torch.core import ntt as tn
+from city_rollup_tpu_torch.core import poseidon_host as t_host
+from city_rollup_tpu_torch.core import poseidon_params as t_params
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "city_rollup_tpu_torch"
+
+
+def test_poseidon_params_verbatim():
+    ref = (ROOT / "city_rollup_tpu/core/poseidon_params.py").read_text()
+    assert (PORT / "core/poseidon_params.py").read_text() == ref
+    assert t_params.ALL_ROUND_CONSTANTS == j_params.ALL_ROUND_CONSTANTS
+    assert t_params.MDS_MATRIX_CIRC == j_params.MDS_MATRIX_CIRC
+    assert t_params.MDS_MATRIX_DIAG == j_params.MDS_MATRIX_DIAG
+    assert (t_params.HALF_N_FULL_ROUNDS, t_params.N_PARTIAL_ROUNDS,
+            t_params.WIDTH, t_params.SPONGE_RATE) == (4, 22, 12, 8)
+    assert t_params.PLONKY2_COMPAT_VERIFIED is False
+
+
+def test_poseidon_host_matches_reference():
+    rng = np.random.default_rng(3)
+    for row in rng.integers(0, t_host.P, size=(4, 12), dtype=np.uint64):
+        state = [int(v) for v in row]
+        assert t_host.permute(state) == j_host.permute(state)
+    assert t_host.hash_or_noop([1, 2, 3]) == j_host.hash_or_noop([1, 2, 3])
+    assert t_host.hash_no_pad(list(range(10))) == \
+        j_host.hash_no_pad(list(range(10)))
+
+
+def _cuh_table(name: str) -> list[int]:
+    src = (PORT / "csrc/poseidon.cuh").read_text()
+    m = re.search(name + r"\(int i\) \{\s*constexpr uint32_t v\[POS_WIDTH\]"
+                  r" = \{([^}]*)\}", src)
+    assert m, name
+    return [int(v) for v in m.group(1).split(",")]
+
+
+def test_kernel_mds_constants_match_params():
+    assert _cuh_table("pos_mds_circ") == j_params.MDS_MATRIX_CIRC
+    assert _cuh_table("pos_mds_diag") == j_params.MDS_MATRIX_DIAG
+    src = (PORT / "csrc/poseidon.cuh").read_text()
+    for macro, value in [("POS_WIDTH", 12), ("POS_RATE", 8),
+                         ("POS_HALF_FULL", 4), ("POS_PARTIAL", 22),
+                         ("POS_ROUNDS", 30)]:
+        assert re.search(rf"#define {macro} {value}\b", src), macro
+
+
+@pytest.mark.parametrize("log_m", [0, 1, 5, 12])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_stage_twiddle_cols(log_m, inverse):
+    np.testing.assert_array_equal(cn._stage_twiddle_cols(log_m, inverse),
+                                  pn._stage_twiddle_cols(log_m, inverse))
+
+
+@pytest.mark.parametrize("args", [(10, 5, 3, 128, False), (9, 4, 2, 64, True),
+                                  (23, 11, 2, 8192, False)])
+def test_gcol(args):
+    np.testing.assert_array_equal(cn._gcol(*args), pn._gcol(*args))
+
+
+@pytest.mark.parametrize("log_n", [0, 3, 11])
+def test_ntt_host_tables(log_n):
+    np.testing.assert_array_equal(tn._bit_reverse_perm(log_n),
+                                  jntt._bit_reverse_perm(log_n))
+    np.testing.assert_array_equal(tn._root_powers(log_n),
+                                  jntt._root_powers(log_n))
+    np.testing.assert_array_equal(tn._inv_root_powers(log_n),
+                                  jntt._inv_root_powers(log_n))
+    np.testing.assert_array_equal(tn._coset_powers(log_n, 7),
+                                  jntt._coset_powers(log_n, 7))
+
+
+def _port_files():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "profile_commit.py"]
+    assert len(files) >= 14
+    return files
+
+
+def test_port_never_imports_the_reference():
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("city_rollup_tpu", "jax", "jaxlib"), \
+                    f"{path.name} imports {name}"
+
+
+def test_port_imports_with_jax_blocked():
+    mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+            for p in _port_files()]
+    mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['jaxlib'] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert not any(k == 'city_rollup_tpu' or\n"
+            "               k.startswith('city_rollup_tpu.')\n"
+            "               for k in sys.modules)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
