@@ -8,14 +8,23 @@ In order, it:
   2. builds the CUDA kernels from city_rollup_tpu_torch/csrc/ (nvcc, one
      process per source, all started together);
   3. holds each kernel bit for bit against its plain PyTorch version on the
-     card, at the shapes the commit path gives it and at edge values;
+     card, at the shapes the commit and FRI paths give it and at edge
+     values;
   4. holds the 2^10 x 16 seed-7 cap against GOLDEN_CAP, the reference
      package's output for the same input (pinned by
-     tests/test_torch_pipeline.py);
-  5. drives the main path once with every launch count set to 0: lde_commit
-     at 2^20 x 64 and lde_commit_streamed at 2^22 x 64 (rate_bits 3,
-     cap_height 4), then holds streamed == one-shot at 2^20 x 64;
-  6. times each kernel, its plain version and its bound;
+     tests/test_torch_pipeline.py), and the small seed-7 FRI proof against
+     GOLDEN_FRI (pinned by tests/test_torch_fri.py);
+  5. drives the commit path once with every launch count set to 0:
+     lde_commit at 2^20 x 64 and lde_commit_streamed at 2^22 x 64
+     (rate_bits 3, cap_height 4), then holds streamed == one-shot at
+     2^20 x 64;
+  6. drives the FRI path once with every launch count set to 0, under
+     FriConfig() defaults: fri_prove of a degree < 2^20 ext codeword
+     (log_m 23) and fri_prove_batch of 8 codewords at log_m 20; then holds
+     batch proof 0 == fri_prove of codeword 0 alone, and has the host
+     fri_verify accept the full-width and one batch proof and reject the
+     full-width proof with one final-poly coefficient changed;
+  7. times each kernel, its plain version and its bound;
 and prints one JSON line of kernels, then as its last line
 {"ok": true, "device": {...}}. Any failure raises, and the exit code is then
 non-zero. Without CUDA, or without the port's package beside it, it fails
@@ -74,6 +83,49 @@ GOLDEN_CAP = [
 RATE_BITS, CAP_HEIGHT = 3, 4
 P = 0xFFFF_FFFF_0000_0001
 
+# fri_prove of the reference package under tests/test_fri.py's configuration
+# (GOLDEN_FRI_CONFIG), on the ext codeword (coset_lde(c0), coset_lde(c1))
+# at log_n 5, rate_bits 3 (so log_m 8), shift 7, with (c0, c1) =
+# golden_fri_coeffs(). The query rounds are pinned by their digest
+# (fri_rounds_digest).
+GOLDEN_FRI_CONFIG = dict(rate_bits=3, cap_height=2, proof_of_work_bits=8,
+                         num_query_rounds=8, final_poly_bits=2)
+GOLDEN_FRI = {
+    "commit_caps": [
+        [[13449938158765108056, 8881390454570414133, 13398381813488741411,
+          4869752172477585490],
+         [15710094558302479922, 6629462921364777469, 16117752112057565543,
+          8988166806681319727],
+         [3982692405914353061, 6185059800053397535, 12010183869404489043,
+          14909577760504420280],
+         [10875173173593366071, 856675227107874614, 2518123291468308538,
+          246160804427729804]],
+        [[6689756446247076064, 10409171409550181669, 7046739843533935038,
+          13777913260887888723],
+         [2758204981224789468, 17421031213549773259, 8026653170983447463,
+          3804662607837861862],
+         [3825613688703128471, 9176524537224326706, 7488640656908480545,
+          17560997262294401070],
+         [17688969927530906696, 13040619944251770913, 11604620800676870705,
+          494541790547035470]],
+        [[862146937927186500, 6820359941652963344, 2571669238078150462,
+          4978490874666883096],
+         [2496915278938699500, 16084206256467119204, 11138216908952256442,
+          16568484609338253236],
+         [10241546610905315096, 4639689868781107267, 8482719434226280969,
+          3748798217260830913],
+         [9464659021140777186, 14529965438656412578, 992997647130692368,
+          15957078606786010461]]],
+    "final_poly": [[9443423741523691392, 10650559413001562589],
+                   [10856518252411826914, 9087883669729363072],
+                   [6385707355905939514, 18111612534455992059],
+                   [16386313636446941205, 12500323945010713965]],
+    "pow_witness": 210,
+    "query_indices": [230, 139, 59, 194, 164, 134, 33, 2],
+    "query_rounds_digest": [727104419784742847, 7111512577969498849,
+                            16781506841225234962, 11268056122848166510],
+}
+
 # Bounds (H100 SXM datasheet peaks at 700 W): 3.35 TB/s of device
 # memory, and 67e12 operations/s outside the tensor cores (the float32 rate,
 # a multiply-add counted as 2). There is no faster rate for 32-bit integer
@@ -87,6 +139,14 @@ OPS_PER_S = 67e12
 OPS_MULMOD = 16
 OPS_MDS_ENTRY = 4
 OPS_PERMUTATION = (8 * 12 * 4 + 22 * 4) * OPS_MULMOD + 30 * 144 * OPS_MDS_ENTRY
+
+# The kernels each path must launch (by their LAUNCHES names). The FRI path
+# hashes every layer's tree levels (K4), grinds (K3) and interpolates the
+# final polynomial (K1, K2: log_m 8, so no tail stage).
+COMMIT_KERNELS = ("ntt_fourstep_tw", "ntt_block", "ntt_tail_stage",
+                  "poseidon_sponge", "poseidon_absorb")
+FRI_KERNELS = ("ntt_fourstep_tw", "ntt_block", "poseidon_permute",
+               "poseidon_sponge")
 
 
 def log(*args):
@@ -125,6 +185,50 @@ def require_equal(got, want, what: str) -> None:
     log(f"check {what}: bit for bit")
 
 
+def require_launched(launches: dict, names, path: str) -> None:
+    zero = [k for k in names if launches[k] == 0]
+    if zero:
+        raise AssertionError(f"kernels never launched on the {path} path: "
+                             f"{zero}")
+
+
+def golden_fri_coeffs() -> tuple[np.ndarray, np.ndarray]:
+    """The coefficient pair of GOLDEN_FRI's codeword (degree < 2^5)."""
+    rng = np.random.default_rng(7)
+    c0 = rng.integers(0, P, size=1 << 5, dtype=np.uint64)
+    c1 = rng.integers(0, P, size=1 << 5, dtype=np.uint64)
+    return c0, c1
+
+
+def fri_rounds_digest(proof) -> list[int]:
+    """poseidon_host.hash_no_pad of a FriProof's query rounds, flattened:
+    round by round, layer by layer, the coset's four felts, then the Merkle
+    path's digests."""
+    from city_rollup_tpu_torch.core import poseidon_host
+    felts = []
+    for rnd in proof.query_rounds:
+        for layer in rnd:
+            for v in layer.coset:
+                felts.extend(int(x) for x in v)
+            for d in layer.merkle_path:
+                felts.extend(int(x) for x in d)
+    return poseidon_host.hash_no_pad(felts)
+
+
+def golden_fri_differences(proof) -> list[str]:
+    """The fields of GOLDEN_FRI that a FriProof (of either package) does
+    not reproduce."""
+    got = {
+        "commit_caps": [np.asarray(c, dtype=np.uint64).tolist()
+                        for c in proof.commit_caps],
+        "final_poly": [[int(a), int(b)] for a, b in proof.final_poly],
+        "pow_witness": int(proof.pow_witness),
+        "query_indices": [int(i) for i in proof.query_indices],
+        "query_rounds_digest": fri_rounds_digest(proof),
+    }
+    return [k for k, want in GOLDEN_FRI.items() if got[k] != want]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -138,7 +242,9 @@ def main() -> int:
     from city_rollup_tpu_torch import _build, convert, pipeline
     from city_rollup_tpu_torch.core import cuda_ntt as cn
     from city_rollup_tpu_torch.core import cuda_poseidon as cp
+    from city_rollup_tpu_torch.core import fri
     from city_rollup_tpu_torch.core import ntt as tn
+    from city_rollup_tpu_torch.core.challenger import Challenger
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -168,30 +274,35 @@ def main() -> int:
     edge = [0, 1, P - 1, (1 << 32) - 1, 1 << 32, 1 << 63]
 
     def with_edges(x):
-        for j, v in enumerate(edge):
+        for j, v in enumerate(edge[:x.shape[1]]):
             x[:, j] = v - (1 << 64) if v >= 1 << 63 else v
             if j < x.shape[0]:
                 x[j, 64:128] = x[0, j]
         return x
 
     # --- kernels against their plain versions ------------------------------
+    # NTT shapes: the commits' (log_m 14 and 23, forward), and FRI's final
+    # coset_intt (inverse): log_m 8 in the single proof (batch 1) and the
+    # B = 8 batch, log_m 5 in the golden proof
     t0 = time.perf_counter()
-    for log_m, batch in [(14, 3), (23, 1)]:
+    for log_m, batch, inverse in [(14, 3, False), (23, 1, False),
+                                  (8, 1, True), (8, 8, True), (5, 1, True)]:
         log_n2 = cn._split(log_m)
         log_n1 = log_m - log_n2
         ks1 = min(log_n1, cn.MAX_KERNEL_LOG)
         a = with_edges(rand((batch << log_n1, 1 << log_n2)))
-        tw2 = cn._stage_table(log_n2, False, dev)
+        tw2 = cn._stage_table(log_n2, inverse, dev)
         g = convert.from_u64(cn._gcol(log_m, log_n2, batch, batch << log_n1,
-                                      False), dev)
+                                      inverse), dev)
+        where = f"log_m={log_m} batch={batch} inverse={inverse}"
         require_equal(cn._block_stages(a, tw2, g, log_n2),
                       cn._block_stages_plain(a, tw2, g, log_n2),
-                      f"ntt_fourstep_tw log_m={log_m} batch={batch}")
+                      f"ntt_fourstep_tw {where}")
         b = with_edges(rand((batch << log_n2, 1 << log_n1)))
-        tw1 = cn._stage_table(ks1, False, dev)
+        tw1 = cn._stage_table(ks1, inverse, dev)
         require_equal(cn._block_stages(b, tw1, None, ks1),
                       cn._block_stages_plain(b, tw1, None, ks1),
-                      f"ntt_block log_m={log_m} batch={batch}")
+                      f"ntt_block {where}")
         x = rand((batch, 1 << log_m))
         require_equal(tn.ntt(x, log_m),
                       tn._ntt_core(x, tn._root_table(log_m, False, dev),
@@ -215,6 +326,10 @@ def main() -> int:
         c = with_edges(rand((k, 1 << 14)))
         require_equal(cp.absorb_t(s, c), cp.absorb_t_plain(s, c),
                       f"poseidon_absorb k={k}")
+    # the permutation with edge values, and at FRI's grinding batch
+    for s in (with_edges(rand((12, 1 << 14))), rand((12, 1 << 17))):
+        require_equal(cp.permute_t(s), cp.permute_t_plain(s),
+                      f"poseidon_permute {tuple(s.shape)}")
     torch.cuda.synchronize()
     log(f"phase kernel checks {time.perf_counter() - t0:.3f} s")
 
@@ -230,16 +345,36 @@ def main() -> int:
                                  "from the reference's")
         log(f"check {fn.__name__} 2^10 x 16 seed 7: equals the golden cap")
 
-    # --- the main path, once, counted --------------------------------------
+    # --- golden FRI proof ----------------------------------------------------
+    # its final coset_intt is log_m 5: the four-step kernels at 2^2 x 2^3
+    t0 = time.perf_counter()
+    golden_cw = tuple(tn.coset_lde(convert.from_u64(c, dev), 5, 3)
+                      for c in golden_fri_coeffs())
+    golden = fri.fri_prove(golden_cw, 8, 7,
+                           fri.FriConfig(**GOLDEN_FRI_CONFIG), Challenger())
+    wrong = golden_fri_differences(golden)
+    if wrong:
+        raise AssertionError(f"golden FRI proof: {wrong} differ from the "
+                             "reference's")
+    log(f"check fri_prove log_m 8 seed 7: equals GOLDEN_FRI "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+    def all_launches():
+        return {**cn.LAUNCHES, **cp.LAUNCHES}
+
+    def zero_launches():
+        torch.cuda.synchronize()
+        for counts in (cn.LAUNCHES, cp.LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+
+    # --- the commit path, once, counted --------------------------------------
     c20 = rand((64, 1 << 20))
     c22 = rand((64, 1 << 22))
-    torch.cuda.synchronize()
-    for counts in (cn.LAUNCHES, cp.LAUNCHES):
-        for key in counts:
-            counts[key] = 0
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     caps = {}
-    before = {**cn.LAUNCHES, **cp.LAUNCHES}
+    before = all_launches()
     for name, fn, x in [
             ("lde_commit 2^20 x 64", pipeline.lde_commit, c20),
             ("lde_commit_streamed 2^22 x 64", pipeline.lde_commit_streamed,
@@ -249,17 +384,14 @@ def main() -> int:
                         rate_bits=RATE_BITS, cap_height=CAP_HEIGHT)
         torch.cuda.synchronize()
         log(f"phase {name} {time.perf_counter() - t0:.6f} s (first call)")
-        now = {**cn.LAUNCHES, **cp.LAUNCHES}
+        now = all_launches()
         log(f"launches in {name}: "
             f"{json.dumps({k: now[k] - before[k] for k in now})}")
         before = now
-    launches = {**cn.LAUNCHES, **cp.LAUNCHES}
-    log(f"main path launches {json.dumps(launches)}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    zero = [k for k, v in launches.items() if v == 0]
-    if zero:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{zero}")
+    path_launches = {"commit": all_launches()}
+    log(f"commit path launches {json.dumps(path_launches['commit'])}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    require_launched(path_launches["commit"], COMMIT_KERNELS, "commit")
     for name, cap in caps.items():
         u = convert.to_u64(cap)
         if u.shape != (1 << CAP_HEIGHT, 4) or (u >= P).any():
@@ -288,7 +420,83 @@ def main() -> int:
     if not torch.equal(streamed20, caps["lde_commit 2^20 x 64"]):
         raise AssertionError("streamed != one-shot at 2^20 x 64")
     log("check lde_commit_streamed == lde_commit at 2^20 x 64")
-    del c20
+    del c20, caps, streamed20, again
+    torch.cuda.empty_cache()
+
+    # --- the FRI path, once, counted -----------------------------------------
+    # ext codewords: the LDEs of random coefficient pairs, made before the
+    # counted run
+    cfg = fri.FriConfig()
+    log_n_fri, log_n_batch, batch = 20, 17, 8
+    cw23 = tuple(tn.coset_lde(rand((1 << log_n_fri,)), log_n_fri,
+                              cfg.rate_bits) for _ in range(2))
+    cw20 = tuple(tn.coset_lde(rand((batch, 1 << log_n_batch)), log_n_batch,
+                              cfg.rate_bits) for _ in range(2))
+    log_m23 = log_n_fri + cfg.rate_bits
+    log_m20 = log_n_batch + cfg.rate_bits
+    shift = 7
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    before = all_launches()
+    fri_runs = [
+        (f"fri_prove log_m {log_m23}",
+         lambda: fri.fri_prove(cw23, log_m23, shift, cfg, Challenger())),
+        (f"fri_prove_batch B={batch} log_m {log_m20}",
+         lambda: fri.fri_prove_batch(cw20, log_m20, shift, cfg,
+                                     [Challenger() for _ in range(batch)]))]
+    proofs = {}
+    for name, run in fri_runs:
+        t0 = time.perf_counter()
+        proofs[name] = run()
+        torch.cuda.synchronize()
+        log(f"phase {name} {time.perf_counter() - t0:.6f} s (first call)")
+        now = all_launches()
+        log(f"launches in {name}: "
+            f"{json.dumps({k: now[k] - before[k] for k in now})}")
+        before = now
+    path_launches["fri"] = all_launches()
+    log(f"FRI path launches {json.dumps(path_launches['fri'])}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    require_launched(path_launches["fri"], FRI_KERNELS, "FRI")
+    proof23 = proofs[fri_runs[0][0]]
+    batch_proofs = proofs[fri_runs[1][0]]
+    if len(proof23.commit_caps) != 15 or len(proof23.final_poly) != 32 or \
+            len(batch_proofs) != batch:
+        raise AssertionError("FRI proofs of the wrong shape")
+
+    # outside the counted run: warm time, batch == single, host verifier
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = fri_runs[0][1]()
+    torch.cuda.synchronize()
+    log(f"phase {fri_runs[0][0]} {time.perf_counter() - t0:.6f} s (warm)")
+    if not convert.fri_proof_equal(again, proof23):
+        raise AssertionError("fri_prove: second call differs")
+    t0 = time.perf_counter()
+    single = fri.fri_prove((cw20[0][0], cw20[1][0]), log_m20, shift, cfg,
+                           Challenger())
+    log(f"phase fri_prove log_m {log_m20} "
+        f"{time.perf_counter() - t0:.6f} s")
+    if not convert.fri_proof_equal(single, batch_proofs[0]):
+        raise AssertionError("fri_prove_batch proof 0 != fri_prove alone")
+    log(f"check fri_prove_batch proof 0 == fri_prove at log_m {log_m20}")
+    for name, proof, log_m in [(f"log_m {log_m23}", proof23, log_m23),
+                               (f"batch proof 0 log_m {log_m20}",
+                                batch_proofs[0], log_m20)]:
+        t0 = time.perf_counter()
+        ok = fri.fri_verify(proof, log_m, shift, cfg, Challenger())
+        log(f"phase fri_verify {name} {time.perf_counter() - t0:.6f} s")
+        if not ok:
+            raise AssertionError(f"fri_verify rejects the {name} proof")
+        log(f"check fri_verify accepts the {name} proof")
+    c = proof23.final_poly[0]
+    proof23.final_poly[0] = ((c[0] + 1) % P, c[1])
+    if fri.fri_verify(proof23, log_m23, shift, cfg, Challenger()):
+        raise AssertionError("fri_verify accepts a tampered final poly")
+    log("check fri_verify rejects a changed final-poly coefficient")
+    del cw23, cw20, proofs, proof23, batch_proofs, again, single
+    launches = {k: sum(p[k] for p in path_launches.values())
+                for k in path_launches["commit"]}
 
     # --- per-kernel times at the main path's shapes --------------------------
     kernels = []
@@ -314,7 +522,9 @@ def main() -> int:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "shape": shape})
+            "library_ms": None, "shape": shape,
+            "launches_by_path": {p: c[name]
+                                 for p, c in path_launches.items()}})
         log(f"time {name} {shape}: {ms:.4f} ms, plain {plain_s * 1e3:.1f} "
             f"ms, bound {max(t_bytes, t_ops):.4f} ms")
         torch.cuda.empty_cache()
@@ -372,6 +582,14 @@ def main() -> int:
             lambda: cp.absorb_t_plain(state, slab), 5,
             8 * (12 + 8 + 12) << 23, OPS_PERMUTATION << 23)
     del state, slab
+    # one grinding batch of FriConfig()'s 16 pow bits: 2^17 states
+    states = rand((12, 1 << 17))
+    measure("poseidon_permute", "city_rollup_tpu_torch/csrc/poseidon.cu",
+            "city_rollup_tpu/core/pallas_poseidon.py:183",
+            list(states.shape),
+            lambda: cp.permute_t(states), lambda: cp.permute_t_plain(states),
+            20, 8 * (12 + 12) << 17, OPS_PERMUTATION << 17)
+    del states
 
     missing = set(launches) - {k["name"] for k in kernels}
     if missing:

@@ -37,6 +37,7 @@ SIGNATURES = {
     },
     "poseidon": {
         "city_poseidon_init": (_P,),
+        "city_poseidon_permute": (_P, _P, _LL, _P),
         "city_poseidon_sponge": (_P, _P, _I, _LL, _P),
         "city_poseidon_absorb": (_P, _P, _P, _I, _LL, _P),
     },

@@ -44,6 +44,38 @@ def to_jax_pair(t: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
             (x >> np.uint64(32)).astype(np.uint32))
 
 
+def from_jax_ext(ext, device=None):
+    """The reference's ext value ((a0lo, a0hi), (a1lo, a1hi)) -> (a0, a1)
+    int64 tensors."""
+    return (from_jax_pair(*ext[0], device=device),
+            from_jax_pair(*ext[1], device=device))
+
+
+def to_jax_ext(ext):
+    """(a0, a1) int64 tensors -> the reference's ((a0lo, a0hi),
+    (a1lo, a1hi)) uint32 pairs (numpy)."""
+    return (to_jax_pair(ext[0]), to_jax_pair(ext[1]))
+
+
+def fri_proof_equal(a, b) -> bool:
+    """Whether two FriProofs (of either package) agree field for field."""
+    def rounds(p):
+        return [[([tuple(map(int, v)) for v in layer.coset],
+                  [list(map(int, d)) for d in layer.merkle_path])
+                 for layer in rnd] for rnd in p.query_rounds]
+
+    return (len(a.commit_caps) == len(b.commit_caps)
+            and all(np.array_equal(np.asarray(x, dtype=np.uint64),
+                                   np.asarray(y, dtype=np.uint64))
+                    for x, y in zip(a.commit_caps, b.commit_caps))
+            and [tuple(map(int, c)) for c in a.final_poly]
+            == [tuple(map(int, c)) for c in b.final_poly]
+            and int(a.pow_witness) == int(b.pow_witness)
+            and list(map(int, a.query_indices))
+            == list(map(int, b.query_indices))
+            and rounds(a) == rounds(b))
+
+
 def as_tensor(x, device=None) -> torch.Tensor:
     """An entry point's input on the device it runs on: a numpy uint64
     array is converted, a tensor is moved (int64 only)."""

@@ -1,14 +1,14 @@
-"""Poseidon sponge and absorb in the transposed layout, with CUDA kernels.
+"""Poseidon permutation, sponge and absorb in the transposed layout, with
+CUDA kernels.
 
 Counterpart of the reference's ``core/pallas_poseidon.py``: arrays are
 (rows, B) int64 tensors in which column j is one sponge input, so the LDE's
 (num_polys, M) output hashes all M leaves with no transpose.
 
-``sponge_t`` (kernel K4, ``csrc/poseidon.cu`` sponge_kernel) and
-``absorb_t`` (K5, absorb_kernel) launch their kernels on a CUDA tensor, run
-their plain PyTorch versions on a CPU tensor, and count their launches in
-``LAUNCHES``. The permutation kernel of the reference (``permute_t``) is
-ported with the FRI slice.
+``permute_t`` (kernel K3, ``csrc/poseidon.cu`` permute_kernel), ``sponge_t``
+(K4, sponge_kernel) and ``absorb_t`` (K5, absorb_kernel) launch their
+kernels on a CUDA tensor, run their plain PyTorch versions on a CPU tensor,
+and count their launches in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ WIDTH = params.WIDTH
 RATE = params.SPONGE_RATE
 
 # Launches of each kernel, counted where the wrapper launches it.
-LAUNCHES = {"poseidon_sponge": 0, "poseidon_absorb": 0}
+LAUNCHES = {"poseidon_permute": 0, "poseidon_sponge": 0,
+            "poseidon_absorb": 0}
 
 _RC_HOST = np.array(params.ALL_ROUND_CONSTANTS, dtype=np.uint64)
 _INITIALIZED: set = set()
@@ -47,6 +48,9 @@ def _lib(t: torch.Tensor):
 # Plain versions of the kernels
 # ---------------------------------------------------------------------------
 
+permute_t_plain = poseidon.permute_t
+
+
 def sponge_t_plain(x_t: torch.Tensor) -> torch.Tensor:
     """Overwrite-mode sponge down each column: (n, B) -> (4, B)."""
     n, b = x_t.shape
@@ -68,6 +72,23 @@ def absorb_t_plain(state_t: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
+
+def permute_t(s_t: torch.Tensor) -> torch.Tensor:
+    """K3: permute every column of a (12, B) state."""
+    if s_t.dim() != 2 or s_t.shape[0] != WIDTH:
+        raise ValueError(f"expected (12, B), got {tuple(s_t.shape)}")
+    if not s_t.is_cuda:
+        return permute_t_plain(s_t)
+    s_t = s_t.contiguous()
+    _build.require_cuda("poseidon_permute", s_t)
+    lib = _lib(s_t)
+    out = torch.empty_like(s_t)
+    rc = lib.city_poseidon_permute(s_t.data_ptr(), out.data_ptr(),
+                                   s_t.shape[1], _build.stream(s_t))
+    _build.check(rc, "city_poseidon_permute")
+    LAUNCHES["poseidon_permute"] += 1
+    return out
+
 
 def sponge_t(x_t: torch.Tensor) -> torch.Tensor:
     """K4: sponge-hash every column of (n, B) into a (4, B) digest."""

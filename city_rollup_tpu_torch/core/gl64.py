@@ -119,6 +119,59 @@ def exp7(a):
     return mul(a6, a)
 
 
+def neg(a):
+    """(-a) mod p: p - a, and 0 for 0."""
+    return torch.where(a == 0, a, to_i64(P) - a)
+
+
+def mul_small(a, k: int):
+    """(a * k) mod p for a small constant 0 <= k < 2^20: two 32-bit limbs
+    times k (each product < 2^52), joined into a < 2^84 value, reduced."""
+    if not 0 <= k < 1 << 20:
+        raise ValueError(f"mul_small takes 0 <= k < 2^20, got {k}")
+    lo_k = (a & _M32) * k
+    hi_k = _hi32(a) * k
+    lo = lo_k + (hi_k << 32)
+    hi = (hi_k >> 32) + _ult(lo, lo_k).to(lo.dtype)
+    return _reduce128(lo, hi)
+
+
+def inverse(a):
+    """a^(p-2): the field inverse by Fermat (0 maps to 0), one square and,
+    where the exponent bit is set, one multiply for each of its 64 bits."""
+    e = P - 2
+    acc = torch.ones_like(a)
+    base = a
+    for i in range(64):
+        if (e >> i) & 1:
+            acc = mul(acc, base)
+        base = square(base)
+    return acc
+
+
+def eq(a, b):
+    return a == b
+
+
+def is_zero(a):
+    return a == 0
+
+
+def select(mask, a, b):
+    """Elementwise mask ? a : b."""
+    return torch.where(mask, a, b)
+
+
+def zeros(shape, device=None) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.int64, device=device)
+
+
+def full(shape, value: int, device=None) -> torch.Tensor:
+    """A tensor of the canonical value `value mod p`."""
+    return torch.full(shape, to_i64(int(value) % P), dtype=torch.int64,
+                      device=device)
+
+
 # ---------------------------------------------------------------------------
 # Host-side vectorized exact ops (numpy uint64; for large constant tables)
 # ---------------------------------------------------------------------------

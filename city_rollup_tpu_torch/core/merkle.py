@@ -3,7 +3,7 @@
 Counterpart of the reference's ``core/merkle.py``. Each level is one
 batched compress of all its nodes (the sponge kernel on a CUDA tensor). The
 cap keeps the top 2^cap_height digests; proofs stop one level below it.
-Digests are (num_nodes, 4) tensors.
+Digests are (num_nodes, 4) tensors, or (B, num_nodes, 4) for B trees.
 """
 
 from __future__ import annotations
@@ -28,27 +28,67 @@ def hash_leaves(leaf_data: torch.Tensor) -> torch.Tensor:
     return poseidon.hash_no_pad(leaf_data)
 
 
-class MerkleTree:
-    """Device-held tree: levels[0] = leaf digests (N, 4); levels[i+1] =
-    pairwise compress of levels[i]; stops when 2^cap_height nodes remain
-    (the cap)."""
+class BatchedMerkleTree:
+    """B trees built together: leaf data (B, N, k) -> levels of (B, n, 4)
+    digests, levels[0] the leaf digests, down to the cap of 2^cap_height
+    nodes per tree. Siblings (2j, 2j+1) never cross the end of a tree, so
+    a level of the B trees is one level of their leaves laid end to end:
+    one sponge launch for all B."""
 
     def __init__(self, leaf_data: torch.Tensor, cap_height: int = 0):
-        digests = hash_leaves(leaf_data)
-        n = digests.shape[0]
+        digests = hash_leaves(leaf_data)                 # (B, N, 4)
+        bsz, n = digests.shape[0], digests.shape[1]
         if n & (n - 1) or n == 0:
             raise ValueError("leaf count must be a power of two")
         if (1 << cap_height) > n:
             raise ValueError("cap is larger than the leaf count")
+        self.batch = bsz
         self.num_leaves = n
         self.cap_height = cap_height
         levels = [digests]
-        d_t = digests.T
-        while d_t.shape[1] > (1 << cap_height):
+        d_t = digests.reshape(bsz * n, 4).T
+        while n > (1 << cap_height):
             d_t = cuda_poseidon.reduce_level_t(d_t)
-            levels.append(d_t.T)
+            n >>= 1
+            levels.append(d_t.T.reshape(bsz, n, 4))
         self.levels = levels
         self._levels_np = None
+
+    @property
+    def cap(self) -> torch.Tensor:
+        """(B, 2^cap_height, 4)."""
+        return self.levels[-1]
+
+    def cap_u64(self, b: int) -> np.ndarray:
+        return convert.to_u64(self.cap[b])
+
+    def _host_levels(self) -> list[np.ndarray]:
+        """All levels on the host as (B, n, 4) uint64, fetched once."""
+        if self._levels_np is None:
+            self._levels_np = [convert.to_u64(lv) for lv in self.levels]
+        return self._levels_np
+
+    def prove(self, b: int, index: int) -> list[list[int]]:
+        """Merkle path for leaf `index` of tree `b`: sibling digests, leaf
+        level first, stopping below the cap. Host-side (u64 ints)."""
+        siblings = []
+        idx = index
+        for level in self._host_levels()[:-1]:
+            siblings.append([int(x) for x in level[b, idx ^ 1]])
+            idx >>= 1
+        return siblings
+
+
+class MerkleTree:
+    """One tree, the B = 1 view of BatchedMerkleTree: leaf data (N, k) ->
+    levels[0] = leaf digests (N, 4), levels[i+1] = pairwise compress of
+    levels[i], down to the cap."""
+
+    def __init__(self, leaf_data: torch.Tensor, cap_height: int = 0):
+        self._trees = BatchedMerkleTree(leaf_data[None], cap_height)
+        self.num_leaves = self._trees.num_leaves
+        self.cap_height = cap_height
+        self.levels = [lv[0] for lv in self._trees.levels]
 
     @property
     def cap(self) -> torch.Tensor:
@@ -56,23 +96,11 @@ class MerkleTree:
         return self.levels[-1]
 
     def cap_u64(self) -> np.ndarray:
-        return convert.to_u64(self.cap)
-
-    def _host_levels(self) -> list[np.ndarray]:
-        """All levels on the host as (n, 4) uint64, fetched once."""
-        if self._levels_np is None:
-            self._levels_np = [convert.to_u64(lv) for lv in self.levels]
-        return self._levels_np
+        return self._trees.cap_u64(0)
 
     def prove(self, index: int) -> list[list[int]]:
-        """Merkle path for leaf `index`: sibling digests, leaf level first,
-        stopping below the cap. Host-side (u64 ints)."""
-        siblings = []
-        idx = index
-        for level in self._host_levels()[:-1]:
-            siblings.append([int(x) for x in level[idx ^ 1]])
-            idx >>= 1
-        return siblings
+        """Merkle path for leaf `index`, leaf level first."""
+        return self._trees.prove(0, index)
 
 
 def h_verify_merkle_proof(leaf_digest: list[int], index: int,

@@ -5,8 +5,8 @@ here runs on CPU tensors, in the transposed (12, B) layout that the kernels
 of ``cuda_poseidon`` use, with the MDS as the reference's ``_mds_layer``
 does it: 16-bit limbs times the 12x12 matrix, then one reduction.
 
-On a CUDA tensor, ``two_to_one`` and ``hash_no_pad`` run the sponge kernel
-at every batch size. ``permute`` on a CUDA tensor has no kernel yet.
+On a CUDA tensor, ``permute`` runs the permutation kernel, and
+``two_to_one`` and ``hash_no_pad`` the sponge kernel, at every batch size.
 """
 
 from __future__ import annotations
@@ -81,10 +81,9 @@ def permute_t(s: torch.Tensor) -> torch.Tensor:
 
 def permute(state: torch.Tensor) -> torch.Tensor:
     """Poseidon permutation on a state of shape (..., 12)."""
-    if state.is_cuda:
-        raise NotImplementedError("ported with the FRI slice")
+    from . import cuda_poseidon
     shape = state.shape
-    out = permute_t(state.reshape(-1, WIDTH).T.contiguous())
+    out = cuda_poseidon.permute_t(state.reshape(-1, WIDTH).T.contiguous())
     return out.T.reshape(shape)
 
 

@@ -1,6 +1,7 @@
-// Poseidon sponge and absorb kernels for Hopper (sm_90a).
+// Poseidon permutation, sponge and absorb kernels for Hopper (sm_90a).
 //
 // Replaces city_rollup_tpu/core/pallas_poseidon.py:
+//   K3 permute_t -> _permute_kernel (pallas_poseidon.py:183; FRI grinding)
 //   K4 _sponge_t_impl -> _sponge_kernel (leaf hashing, every Merkle level)
 //   K5 absorb_t -> _absorb_kernel (the streamed commit's slab absorb)
 //
@@ -10,11 +11,14 @@
 // loads of row r touch 32 neighbouring u64 (coalesced).
 //
 // Bound. One permutation is ~470 Goldilocks multiplies (the S-boxes) and
-// 30 x 288 small-constant 32-bit multiply-adds (the MDS); a 64-felt leaf
-// takes 8 of them against 512 bytes of input, so both kernels are bound by
-// integer throughput, not memory bytes. The design spends nothing
-// on data movement inside a hash (no shared memory, no re-reads) and keeps
-// the MDS as immediate-constant multiply-adds with one reduction per lane.
+// 30 x 288 small-constant 32-bit multiply-adds (the MDS): counted as
+// chip_smoke.OPS_PERMUTATION integer operations per state, for all three
+// kernels alike. Against that a permutation moves at most 192 bytes (K3:
+// 12 u64 in, 12 out), and a 64-felt leaf takes 8 of them against 512 bytes
+// of input, so all three are bound by integer throughput, not memory bytes.
+// The design spends nothing on data movement inside a hash (no shared
+// memory, no re-reads) and keeps the MDS as immediate-constant
+// multiply-adds with one reduction per lane.
 #include <cuda_runtime.h>
 
 #include "poseidon.cuh"
@@ -22,6 +26,19 @@
 namespace {
 
 constexpr int kThreads = 128;
+
+// in, out: (12, B). Each column is one state, permuted once.
+__global__ void permute_kernel(const uint64_t* __restrict__ in,
+                               uint64_t* __restrict__ out, size_t B) {
+  const size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= B) return;
+  uint64_t s[POS_WIDTH];
+#pragma unroll
+  for (int i = 0; i < POS_WIDTH; ++i) s[i] = in[(size_t)i * B + j];
+  pos_permute(s);
+#pragma unroll
+  for (int i = 0; i < POS_WIDTH; ++i) out[(size_t)i * B + j] = s[i];
+}
 
 // in: (n, B); out: (4, B). Overwrite-mode sponge, rate 8, from a zero state.
 __global__ void sponge_kernel(const uint64_t* __restrict__ in,
@@ -69,6 +86,14 @@ unsigned blocks_for(size_t B) {
 extern "C" int city_poseidon_init(const uint64_t* round_constants) {
   cudaMemcpyToSymbol(kRoundConstants, round_constants,
                      sizeof(uint64_t) * POS_ROUNDS * POS_WIDTH);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int city_poseidon_permute(const uint64_t* in, uint64_t* out,
+                                     long long B, void* stream) {
+  if (B > 0)
+    permute_kernel<<<blocks_for((size_t)B), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(in, out, (size_t)B);
   return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Where the device time of the two commits goes, on one GPU.
+"""Where the device time of the two commits and of FRI goes, on one GPU.
 
     python3 profile_commit.py [--out DIR]
 
 Runs lde_commit at 2^20 x 64 and lde_commit_streamed at 2^22 x 64
-(rate_bits 3, cap_height 4) of the PyTorch/CUDA port once each to warm up,
-then once each under torch.profiler. For each commit it prints the wall
-time, the summed device time of its kernels (one stream, so the kernels do
-not overlap), the device's idle share, and the kernels by device time, and
-writes the Chrome trace to DIR (default profile_out/). The last line is one
-JSON object with the same numbers. It fails without CUDA.
+(rate_bits 3, cap_height 4), and fri_prove (FriConfig() defaults) of the ext
+codeword of a random degree < 2^20 pair (log_m 23), of the PyTorch/CUDA port
+once each to warm up, then once each under torch.profiler. For each run it
+prints the wall time, the summed device time of its kernels (one stream, so
+the kernels do not overlap), the device's idle share, and the kernels by
+device time, and writes the Chrome trace to DIR (default profile_out/). The
+last line is one JSON object with the same numbers. It fails without CUDA.
 """
 
 from __future__ import annotations
@@ -39,6 +40,54 @@ def _is_kernel(evt) -> bool:
     return getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
 
 
+def fri_phases(run) -> dict:
+    """One more run of a FRI prove with its steps timed: each wraps its
+    call in torch.cuda.synchronize() and adds its wall time to its step.
+    Steps nest (a host copy inside a Merkle opening counts in both), so the
+    times are inclusive and do not add up to the total."""
+    from city_rollup_tpu_torch import convert
+    from city_rollup_tpu_torch.core import fri, merkle
+    from city_rollup_tpu_torch.core.challenger import Challenger
+    steps = [
+        ("commit: Merkle tree build", merkle.BatchedMerkleTree,
+         "__init__"),
+        ("fold (torch, gl64_ext)", fri, "_fold_codeword"),
+        ("final polynomial (coset_intt + check)", fri, "_final_poly_coeffs"),
+        ("grind (K3 batches)", fri, "grind"),
+        ("query openings (BatchedMerkleTree.prove)",
+         merkle.BatchedMerkleTree, "prove"),
+        ("challenger duplex (host Poseidon)", Challenger, "_duplex"),
+        ("copies to the host (convert.to_u64)", convert, "to_u64")]
+    totals = {name: 0.0 for name, _, _ in steps}
+    saved = []
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                totals[name] += (time.perf_counter() - t) * 1e3
+        return wrapper
+
+    for name, owner, attr in steps:
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, timed(name, fn))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        totals["total"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    return totals
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="profile_out")
@@ -49,6 +98,8 @@ def main() -> int:
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     from city_rollup_tpu_torch import _build, convert, pipeline
+    from city_rollup_tpu_torch.core import fri, ntt
+    from city_rollup_tpu_torch.core.challenger import Challenger
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -61,40 +112,67 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     results = {}
-    for name, fn, log_n in [
-            ("lde_commit 2^20 x 64", pipeline.lde_commit, 20),
-            ("lde_commit_streamed 2^22 x 64", pipeline.lde_commit_streamed,
-             22)]:
-        x = convert.from_u64(
-            rng.integers(0, P, size=(64, 1 << log_n), dtype=np.uint64), dev)
-        kw = dict(log_n=log_n, rate_bits=3, cap_height=4)
-        fn(x, **kw)
+
+    def rand(shape):
+        return convert.from_u64(
+            rng.integers(0, P, size=shape, dtype=np.uint64), dev)
+
+    def commit(fn, log_n):
+        x = rand((64, 1 << log_n))
+        return lambda: fn(x, log_n=log_n, rate_bits=3, cap_height=4)
+
+    def fri_prove(log_n):
+        cfg = fri.FriConfig()
+        cw = tuple(ntt.coset_lde(rand((1 << log_n,)), log_n, cfg.rate_bits)
+                   for _ in range(2))
+        return lambda: fri.fri_prove(cw, log_n + cfg.rate_bits, 7, cfg,
+                                     Challenger())
+
+    for name, tag, make in [
+            ("lde_commit 2^20 x 64", "lde_commit_20",
+             lambda: commit(pipeline.lde_commit, 20)),
+            ("lde_commit_streamed 2^22 x 64", "lde_commit_streamed_22",
+             lambda: commit(pipeline.lde_commit_streamed, 22)),
+            ("fri_prove log_m 23", "fri_prove_23", lambda: fri_prove(20))]:
+        run = make()
+        run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            fn(x, **kw)
+            run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        del x
+        phases = fri_phases(run) if tag.startswith("fri") else None
+        del run
         kernels = [(e.key, e.count, _device_us(e) / 1e3)
                    for e in prof.key_averages() if _is_kernel(e)]
         kernels.sort(key=lambda k: -k[2])
         busy_ms = sum(k[2] for k in kernels)
         if busy_ms <= 0:
             raise RuntimeError("the profiler recorded no device time")
-        trace = out_dir / f"trace_{name.split()[0]}_{log_n}.json"
+        # copies between host and device run on the copy engines
+        copy_ms = sum(k[2] for k in kernels if k[0].startswith("Memcpy"))
+        trace = out_dir / f"trace_{tag}.json"
         prof.export_chrome_trace(str(trace))
-        print(f"{name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
-              f"idle share {1 - busy_ms / wall_ms:.4f}", flush=True)
+        print(f"{name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+              f"(of it copies {copy_ms:.3f} ms), idle share "
+              f"{1 - busy_ms / wall_ms:.4f}", flush=True)
         for key, count, ms in kernels[:15]:
             print(f"  {ms:10.3f} ms {ms / busy_ms:7.2%} x{count:<5} "
                   f"{key[:100]}", flush=True)
         results[name] = {
             "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / wall_ms,
+            "copy_ms": copy_ms, "idle_share": 1 - busy_ms / wall_ms,
             "kernels": [{"name": k[:100], "count": c, "ms": ms}
                         for k, c, ms in kernels[:15]]}
+        if phases:
+            print(f"{name} without the profiler, by step (inclusive wall "
+                  f"ms; each step synchronises the device at its ends):",
+                  flush=True)
+            for step, ms in phases.items():
+                print(f"  {ms:10.3f} ms  {step}", flush=True)
+            results[name]["steps_ms"] = phases
     print(card, flush=True)
     print(json.dumps(results), flush=True)
     return 0

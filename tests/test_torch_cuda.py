@@ -16,9 +16,10 @@ import torch
 from city_rollup_tpu_torch import convert
 from city_rollup_tpu_torch.core import cuda_ntt as cn
 from city_rollup_tpu_torch.core import cuda_poseidon as cp
-from city_rollup_tpu_torch.core import gl64
+from city_rollup_tpu_torch.core import fri, gl64
 from city_rollup_tpu_torch.core import ntt as tn
 from city_rollup_tpu_torch.core import poseidon as tposeidon
+from city_rollup_tpu_torch.core.challenger import Challenger
 
 P = gl64.P
 EDGE = [0, 1, P - 1, (1 << 32) - 1, 1 << 32, 1 << 63]
@@ -95,7 +96,27 @@ def test_absorb_kernel_matches_plain(cuda, k):
     assert torch.equal(got, cp.absorb_t_plain(state, chunk))
 
 
-def test_permute_on_cuda_waits_for_its_kernel(cuda):
-    with pytest.raises(NotImplementedError):
-        tposeidon.permute(torch.zeros(4, 12, dtype=torch.int64,
-                                      device=cuda))
+@pytest.mark.parametrize("b", [5, 1 << 14])
+def test_permute_kernel_matches_plain(cuda, b):
+    s = convert.from_u64(_cols(12, b, seed=b) if b > 8 else _rand((12, b), b),
+                         cuda)
+    before = cp.LAUNCHES["poseidon_permute"]
+    got = cp.permute_t(s)
+    torch.cuda.synchronize()
+    assert cp.LAUNCHES["poseidon_permute"] == before + 1
+    assert torch.equal(got, cp.permute_t_plain(s))
+    # the (..., 12) entry point transposes to (12, B) and launches K3 too
+    assert torch.equal(tposeidon.permute(s.T), got.T)
+    assert cp.LAUNCHES["poseidon_permute"] == before + 2
+
+
+def test_fri_golden_proof_on_card(cuda):
+    import chip_smoke
+    cw = tuple(tn.coset_lde(convert.from_u64(c, cuda), 5, 3)
+               for c in chip_smoke.golden_fri_coeffs())
+    cfg = fri.FriConfig(**chip_smoke.GOLDEN_FRI_CONFIG)
+    before = cp.LAUNCHES["poseidon_permute"]
+    proof = fri.fri_prove(cw, 8, 7, cfg, Challenger())
+    assert cp.LAUNCHES["poseidon_permute"] > before
+    assert chip_smoke.golden_fri_differences(proof) == []
+    assert fri.fri_verify(proof, 8, 7, cfg, Challenger())

@@ -30,11 +30,11 @@ def interpret(monkeypatch):
     """Run the reference's Pallas kernels as its own tests do."""
     monkeypatch.setenv("CITY_PALLAS_INTERPRET", "1")
     monkeypatch.setattr(pp, "B_TILE", 128)
-    pp.absorb_t._clear_cache()
-    pp._sponge_t_impl._clear_cache()
+    for fn in (pp.permute_t, pp.absorb_t, pp._sponge_t_impl):
+        fn._clear_cache()
     yield
-    pp.absorb_t._clear_cache()
-    pp._sponge_t_impl._clear_cache()
+    for fn in (pp.permute_t, pp.absorb_t, pp._sponge_t_impl):
+        fn._clear_cache()
 
 
 def _cols(n, b, seed):
@@ -68,6 +68,25 @@ def test_permute_matches_host_and_jnp():
         got, _host_cols(poseidon_host.permute, states.T).T)
     np.testing.assert_array_equal(
         got[:16], _u64(jposeidon.permute(jg.from_u64(states[:16]))))
+
+
+def test_permute_t_matches_pallas_and_host(interpret):
+    """K3's plain version against the reference's Pallas permutation kernel
+    (interpreted) at one 128-lane tile, and against poseidon_host."""
+    x = _cols(12, 128, seed=7)
+    got = convert.to_u64(cp.permute_t(_t(x)))
+    np.testing.assert_array_equal(got, _u64(pp.permute_t(*jg.from_u64(x))))
+    np.testing.assert_array_equal(got, _host_cols(poseidon_host.permute, x))
+    np.testing.assert_array_equal(
+        convert.to_u64(cp.permute_t_plain(_t(x))), got)
+    np.testing.assert_array_equal(
+        convert.to_u64(tposeidon.permute(_t(x.T.copy()))), got.T)
+
+
+def test_permute_t_rejects_bad_shapes():
+    for shape in [(11, 4), (12,), (2, 12, 4)]:
+        with pytest.raises(ValueError):
+            cp.permute_t(torch.zeros(shape, dtype=torch.int64))
 
 
 @pytest.mark.parametrize("n", [3, 10])
@@ -137,6 +156,29 @@ def test_merkle_tree_matches_reference():
         leaf = tmerkle.h_hash_leaf([int(v) for v in leaves[i]])
         assert tmerkle.h_verify_merkle_proof(leaf, i, path, cap)
         assert not tmerkle.h_verify_merkle_proof(leaf, i ^ 1, path, cap)
+
+
+def test_batched_merkle_tree_matches_reference():
+    """B = 3 trees of N = 16 leaves of k = 8 felts: every level, the caps
+    and the paths equal the reference's, and each tree equals a MerkleTree
+    of its own leaves."""
+    leaves = np.stack([_cols(8, 16, seed=70 + b).T for b in range(3)])
+    tree = tmerkle.BatchedMerkleTree(_t(leaves), cap_height=2)
+    ref = jmerkle.BatchedMerkleTree(jg.from_u64(leaves), cap_height=2)
+    assert len(tree.levels) == len(ref.levels) == 3
+    for got, want in zip(tree.levels, ref.levels):
+        np.testing.assert_array_equal(convert.to_u64(got), _u64(want))
+    for b in range(3):
+        cap = tree.cap_u64(b)
+        np.testing.assert_array_equal(cap, ref.cap_u64(b))
+        single = tmerkle.MerkleTree(_t(leaves[b]), cap_height=2)
+        np.testing.assert_array_equal(cap, single.cap_u64())
+        for i in (0, 6, 15):
+            path = tree.prove(b, i)
+            assert path == ref.prove(b, i) == single.prove(i)
+            leaf = tmerkle.h_hash_leaf([int(v) for v in leaves[b, i]])
+            assert tmerkle.h_verify_merkle_proof(leaf, i, path, cap)
+    np.testing.assert_array_equal(convert.to_u64(tree.cap), _u64(ref.cap))
 
 
 def test_absorb_rejects_bad_shapes():

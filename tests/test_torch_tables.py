@@ -90,7 +90,7 @@ def test_ntt_host_tables(log_n):
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "profile_commit.py"]
-    assert len(files) >= 14
+    assert len(files) >= 17
     return files
 
 
@@ -115,6 +115,8 @@ def test_port_imports_with_jax_blocked():
             for p in _port_files()]
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
+    assert {f"city_rollup_tpu_torch.core.{m}"
+            for m in ("gl64_ext", "challenger", "fri")} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['jaxlib'] = None\n"
