@@ -6,10 +6,11 @@
 In order, it:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels from city_rollup_tpu_torch/csrc/ (nvcc, one
-     process per source, all started together);
+     process per source, all started together) and prints each kernel's
+     registers and spills (-Xptxas -v) as one JSON line;
   3. holds each kernel bit for bit against its plain PyTorch version on the
      card, at the shapes the commit and FRI paths give it and at edge
-     values;
+     values, K4's Merkle-level entry (reduce_level_t) included;
   4. holds the 2^10 x 16 seed-7 cap against GOLDEN_CAP, the reference
      package's output for the same input (pinned by
      tests/test_torch_pipeline.py), and the small seed-7 FRI proof against
@@ -134,8 +135,8 @@ MEM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 # Operations counted: a Goldilocks multiply is four 32x32 -> 64 products of
 # two multiply-adds each (16 operations); an MDS entry times a u64 is two
-# multiply-adds (4 operations). Adds, compares and reductions are not
-# counted, so the count is a lower bound.
+# multiply-adds (4 operations; the core does them as two FP64 DFMAs). Adds,
+# compares and reductions are not counted, so the count is a lower bound.
 OPS_MULMOD = 16
 OPS_MDS_ENTRY = 4
 OPS_PERMUTATION = (8 * 12 * 4 + 22 * 4) * OPS_MULMOD + 30 * 144 * OPS_MDS_ENTRY
@@ -260,10 +261,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build()
     log(f"phase build {time.perf_counter() - t0:.3f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "Compiling entry" in line or "registers" in line:
-                log(f"  {name}: {line.strip()}")
+    log("registers and spills " + json.dumps(
+        {name: _build.ptxas_usage(text) for name, text in logs.items()}))
 
     rng = np.random.default_rng(0)
 
@@ -321,6 +320,17 @@ def main() -> int:
         x = with_edges(rand((n, 1 << 14)))
         require_equal(cp.sponge_t(x), cp.sponge_t_plain(x),
                       f"poseidon_sponge n={n}")
+    # K4's Merkle-level entry reads the (4, 2B) children in place: against
+    # the plain two_to_one of the strided slices, with edge values and at
+    # the one-shot commit's leaf level, and against the sponge entry
+    for x in (with_edges(rand((4, 1 << 15))), rand((4, 1 << 23))):
+        got = cp.reduce_level_t(x)
+        require_equal(got, cp.reduce_level_t_plain(x),
+                      f"poseidon_sponge level entry {tuple(x.shape)}")
+        require_equal(got, cp.two_to_one_t(x[:, 0::2], x[:, 1::2]),
+                      f"level entry == sponge entry {tuple(x.shape)}")
+        del got
+    del x
     for k in (3, 8):
         s = with_edges(rand((12, 1 << 14)))
         c = with_edges(rand((k, 1 << 14)))
@@ -573,6 +583,12 @@ def main() -> int:
             lambda: cp.sponge_t(leaves), lambda: cp.sponge_t_plain(leaves), 3,
             8 * (64 + 4) << 23, 8 * OPS_PERMUTATION << 23)
     del leaves
+    # K4's Merkle-level entry at the one-shot commit's leaf level (its
+    # launches count under poseidon_sponge)
+    level = rand((4, 1 << 23))
+    log(f"time poseidon_sponge level entry (4, 2^23): "
+        f"{cuda_ms(lambda: cp.reduce_level_t(level), 20):.4f} ms")
+    del level
     # one slab absorb of the streamed commit at 2^20 x 64 (M = 2^23)
     state, slab = rand((12, 1 << 23)), rand((8, 1 << 23))
     measure("poseidon_absorb", "city_rollup_tpu_torch/csrc/poseidon.cu",

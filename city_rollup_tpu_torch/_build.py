@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -36,10 +37,11 @@ SIGNATURES = {
         "city_ntt_tail": (_P, _P, _P, _LL, _I, _I, _P),
     },
     "poseidon": {
-        "city_poseidon_init": (_P,),
+        "city_poseidon_init": (_P, _LL),
         "city_poseidon_permute": (_P, _P, _LL, _P),
         "city_poseidon_sponge": (_P, _P, _I, _LL, _P),
         "city_poseidon_absorb": (_P, _P, _P, _I, _LL, _P),
+        "city_poseidon_merkle_level": (_P, _P, _LL, _P),
     },
 }
 
@@ -98,6 +100,47 @@ def build(names=SOURCES) -> dict[str, str]:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
     return logs
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's source name from its mangled one (the length-prefixed
+    identifier that ends in ``_kernel``), with ``<true>`` or ``<false>``
+    for a bool template argument."""
+    m = re.search(r"_kernel(?:ILb([01])E)?", mangled)
+    if not m:
+        return mangled
+    end = m.start() + len("_kernel")
+    for length in range(len("_kernel") + 1, end + 1):
+        digits = str(length)
+        start = end - length
+        if mangled[start - len(digits):start] == digits and \
+                mangled[start].isalpha():
+            return mangled[start:end] + {"0": "<false>", "1": "<true>",
+                                         None: ""}[m.group(1)]
+    return mangled
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from a
+    ``build`` log (``-Xptxas -v``), each kernel by its source name."""
+    out: dict = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(kernel_name(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"] = int(m.group(1))
+            cur["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

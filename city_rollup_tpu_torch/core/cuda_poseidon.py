@@ -6,9 +6,11 @@ Counterpart of the reference's ``core/pallas_poseidon.py``: arrays are
 (num_polys, M) output hashes all M leaves with no transpose.
 
 ``permute_t`` (kernel K3, ``csrc/poseidon.cu`` permute_kernel), ``sponge_t``
-(K4, sponge_kernel) and ``absorb_t`` (K5, absorb_kernel) launch their
+(K4, sponge_kernel), ``reduce_level_t`` (K4's Merkle-level entry,
+merkle_level_kernel) and ``absorb_t`` (K5, absorb_kernel) launch their
 kernels on a CUDA tensor, run their plain PyTorch versions on a CPU tensor,
-and count their launches in ``LAUNCHES``.
+and count their launches in ``LAUNCHES`` (both K4 entries under
+"poseidon_sponge").
 """
 
 from __future__ import annotations
@@ -27,18 +29,28 @@ RATE = params.SPONGE_RATE
 LAUNCHES = {"poseidon_permute": 0, "poseidon_sponge": 0,
             "poseidon_absorb": 0}
 
-_RC_HOST = np.array(params.ALL_ROUND_CONSTANTS, dtype=np.uint64)
+# The core's constant tables, in csrc/poseidon.cuh PosTables order: the
+# round constants, then for the FP64 MDS 2^52 + each 32-bit word of each
+# round's constants (and a last row of 2^52 alone), as float64 bit patterns.
+_RC = np.array(params.ALL_ROUND_CONSTANTS, dtype=np.uint64)
+_RC_WORDS = np.concatenate([_RC, np.zeros(WIDTH, np.uint64)]).reshape(
+    params.N_ROUNDS + 1, WIDTH, 1)
+_MDS_START = np.concatenate(
+    [_RC_WORDS & np.uint64(0xFFFFFFFF), _RC_WORDS >> np.uint64(32)],
+    axis=2).astype(np.float64) + 2.0 ** 52
+_TABLES_HOST = np.concatenate([_RC, _MDS_START.view(np.uint64).ravel()])
 _INITIALIZED: set = set()
 
 
 def _lib(t: torch.Tensor):
-    """The Poseidon library, with the round constants copied to t's device."""
+    """The Poseidon library, with its tables copied to t's device."""
     lib = _build.load("poseidon")
     dev = t.device.index if t.device.index is not None \
         else torch.cuda.current_device()
     if dev not in _INITIALIZED:
         with torch.cuda.device(dev):
-            _build.check(lib.city_poseidon_init(_RC_HOST.ctypes.data),
+            _build.check(lib.city_poseidon_init(_TABLES_HOST.ctypes.data,
+                                                _TABLES_HOST.size),
                          "city_poseidon_init")
         _INITIALIZED.add(dev)
     return lib
@@ -60,6 +72,11 @@ def sponge_t_plain(x_t: torch.Tensor) -> torch.Tensor:
         s = torch.cat([x_t[start:start + k], s[k:]])
         s = poseidon.permute_t(s)
     return s[:4]
+
+
+def reduce_level_t_plain(d_t: torch.Tensor) -> torch.Tensor:
+    """One Merkle level: two_to_one of the strided children slices."""
+    return sponge_t_plain(torch.cat([d_t[:, 0::2], d_t[:, 1::2]]))
 
 
 def absorb_t_plain(state_t: torch.Tensor,
@@ -150,6 +167,19 @@ def two_to_one_t(left_t: torch.Tensor, right_t: torch.Tensor) -> torch.Tensor:
 
 
 def reduce_level_t(d_t: torch.Tensor) -> torch.Tensor:
-    """One Merkle level, transposed: (4, 2B) digests -> (4, B) parents.
-    Children are adjacent columns (2j, 2j+1)."""
-    return two_to_one_t(d_t[:, 0::2], d_t[:, 1::2])
+    """K4's Merkle-level entry: (4, 2B) digests -> (4, B) parents, parent j
+    the two_to_one of adjacent columns (2j, 2j+1), read in place."""
+    if d_t.dim() != 2 or d_t.shape[0] != 4 or d_t.shape[1] % 2:
+        raise ValueError(f"expected (4, 2B), got {tuple(d_t.shape)}")
+    if not d_t.is_cuda:
+        return reduce_level_t_plain(d_t)
+    d_t = d_t.contiguous()
+    _build.require_cuda("poseidon_sponge", d_t)
+    b = d_t.shape[1] // 2
+    lib = _lib(d_t)
+    out = d_t.new_empty((4, b))
+    rc = lib.city_poseidon_merkle_level(d_t.data_ptr(), out.data_ptr(), b,
+                                        _build.stream(d_t))
+    _build.check(rc, "city_poseidon_merkle_level")
+    LAUNCHES["poseidon_sponge"] += 1
+    return out

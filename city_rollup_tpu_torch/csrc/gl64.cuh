@@ -1,12 +1,23 @@
 // Goldilocks field (p = 2^64 - 2^32 + 1) on native uint64_t, for every
 // kernel of the port. The reference (city_rollup_tpu/core/gl64.py) carries a
 // value as two uint32 limbs because the TPU has no 64-bit integer datapath;
-// the GPU has one, so a value is one uint64_t and a product is one
-// 64x64 -> 128 multiply (a * b and __umul64hi), reduced as the reference's
-// _reduce128 does: 2^64 = 2^32 - 1 and 2^96 = -1 (mod p).
+// the GPU has one, so a value is one uint64_t and a product is four
+// 32x32 -> 64 multiplies, reduced as the reference's _reduce128 does:
+// 2^64 = 2^32 - 1 and 2^96 = -1 (mod p).
 //
-// Every function takes canonical inputs (< p) and returns a canonical value,
-// except gl_reduce96 and gl_canonicalize, which accept any u64.
+// Two kinds of step. The canonical ones (gl_add, gl_sub, gl_mul, gl_pow)
+// take values < p and return a value < p; the NTT kernels use them. The lazy
+// ones (*_lazy; the Poseidon core) take any u64 and return some
+// u64 congruent mod p, which may be >= p: the core carries such values
+// between rounds and canonicalises once, at the end, as the reference's TPU
+// kernel does.
+//
+// The lazy steps are PTX carry chains on 32-bit words: the Poseidon core's
+// time follows its instruction count, and a carry flag replaces the compare
+// and select that C code needs to detect a wrap. Each chain keeps an exact count k of the 2^64 wraps and adds
+// k * EPS (2^64 = EPS mod p) at the end. Values in [p, 2^64) are rare on
+// random data, so each step is modelled line for line in python ints and run
+// on edge values by tests/test_torch_gl64_lazy.py; keep the two in step.
 #pragma once
 
 #include <cstdint>
@@ -14,15 +25,37 @@
 #define GL_P 0xFFFFFFFF00000001ULL
 #define GL_EPS 0xFFFFFFFFULL  // 2^64 mod p
 
+__device__ __forceinline__ uint32_t gl_lo(uint64_t a) { return (uint32_t)a; }
+__device__ __forceinline__ uint32_t gl_hi(uint64_t a) {
+  return (uint32_t)(a >> 32);
+}
+
+// Any u64 is < 2p, so one conditional subtract makes it canonical.
 __device__ __forceinline__ uint64_t gl_canonicalize(uint64_t a) {
   return a >= GL_P ? a - GL_P : a;
 }
 
+// a: any u64; c < p. A carry k is worth k * EPS = k * 2^32 - k; the wrapped
+// sum is then < c < p, so adding EPS does not carry again.
+__device__ __forceinline__ uint64_t gl_add_lazy(uint64_t a, uint64_t c) {
+  uint64_t r;
+  asm("{\n\t"
+      ".reg .u32 s0, s1, k;\n\t"
+      "add.cc.u32 s0, %1, %3;\n\t"
+      "addc.cc.u32 s1, %2, %4;\n\t"
+      "addc.u32 k, 0, 0;\n\t"
+      "sub.cc.u32 s0, s0, k;\n\t"
+      "subc.u32 s1, s1, 0;\n\t"
+      "add.u32 s1, s1, k;\n\t"
+      "mov.b64 %0, {s0, s1};\n\t"
+      "}"
+      : "=l"(r)
+      : "r"(gl_lo(a)), "r"(gl_hi(a)), "r"(gl_lo(c)), "r"(gl_hi(c)));
+  return r;
+}
+
 __device__ __forceinline__ uint64_t gl_add(uint64_t a, uint64_t b) {
-  uint64_t s = a + b;
-  // a carry out is worth 2^64 = EPS; the sum then is < p - EPS, no re-carry
-  if (s < a) s += GL_EPS;
-  return gl_canonicalize(s);
+  return gl_canonicalize(gl_add_lazy(a, b));
 }
 
 __device__ __forceinline__ uint64_t gl_sub(uint64_t a, uint64_t b) {
@@ -32,28 +65,97 @@ __device__ __forceinline__ uint64_t gl_sub(uint64_t a, uint64_t b) {
   return d;
 }
 
-// (lo + hi * 2^64) mod p for any 128-bit value.
-__device__ __forceinline__ uint64_t gl_reduce128(uint64_t lo, uint64_t hi) {
-  uint64_t hi_hi = hi >> 32;
-  uint64_t hi_lo = hi & GL_EPS;
-  uint64_t t = lo - hi_hi;  // - hi_hi * 2^96 = + hi_hi
-  if (lo < hi_hi) t -= GL_EPS;
-  uint64_t m = hi_lo * GL_EPS;  // hi_lo * 2^64, < 2^64
-  uint64_t r = t + m;
-  if (r < m) r += GL_EPS;
-  return gl_canonicalize(r);
+// a * b = r0 + r1 2^32 + r2 2^64 + r3 2^96, for any u64 a, b: four 32x32
+// products, the two cross products added with one carry chain each (the
+// full product is < 2^128, so r3 never carries out).
+__device__ __forceinline__ void gl_mul_words(uint64_t a, uint64_t b,
+                                             uint32_t& r0, uint32_t& r1,
+                                             uint32_t& r2, uint32_t& r3) {
+  asm("{\n\t"
+      ".reg .u32 m, h;\n\t"
+      ".reg .u64 t;\n\t"
+      "mul.wide.u32 t, %4, %6;\n\t"
+      "mov.b64 {%0, %1}, t;\n\t"
+      "mul.wide.u32 t, %5, %7;\n\t"
+      "mov.b64 {%2, %3}, t;\n\t"
+      "mul.wide.u32 t, %4, %7;\n\t"
+      "mov.b64 {m, h}, t;\n\t"
+      "add.cc.u32 %1, %1, m;\n\t"
+      "addc.cc.u32 %2, %2, h;\n\t"
+      "addc.u32 %3, %3, 0;\n\t"
+      "mul.wide.u32 t, %5, %6;\n\t"
+      "mov.b64 {m, h}, t;\n\t"
+      "add.cc.u32 %1, %1, m;\n\t"
+      "addc.cc.u32 %2, %2, h;\n\t"
+      "addc.u32 %3, %3, 0;\n\t"
+      "}"
+      : "=&r"(r0), "=&r"(r1), "=&r"(r2), "=&r"(r3)
+      : "r"(gl_lo(a)), "r"(gl_hi(a)), "r"(gl_lo(b)), "r"(gl_hi(b)));
 }
 
-// (lo + hi * 2^64) mod p for hi < 2^32 (the MDS accumulator).
-__device__ __forceinline__ uint64_t gl_reduce96(uint64_t lo, uint64_t hi) {
-  uint64_t m = hi * GL_EPS;
-  uint64_t r = lo + m;
-  if (r < m) r += GL_EPS;
-  return gl_canonicalize(r);
+// (r0 + r1 2^32 + r2 2^64 + r3 2^96) mod p, as some u64. With 2^64 =
+// 2^32 - 1 and 2^96 = -1 (mod p): V = (r0 + r1 2^32) - (r2 + r3) + r2 2^32,
+// so -2^32 < V < 2^65. W = V mod 2^64 and k = (V - W) / 2^64 in
+// {-1, 0, 1}; W + k EPS does not wrap (k = 1 means W < 2^64 - 2^33, k = -1
+// means W > 2^64 - 2^32), and k EPS as 64 bits is (-k) + (k >> 31) 2^32.
+__device__ __forceinline__ uint64_t gl_reduce_words(uint32_t r0, uint32_t r1,
+                                                    uint32_t r2,
+                                                    uint32_t r3) {
+  uint64_t out;
+  asm("{\n\t"
+      ".reg .u32 w0, w1, s, sh, k, m, h;\n\t"
+      "add.cc.u32 s, %3, %4;\n\t"
+      "addc.u32 sh, 0, 0;\n\t"
+      "sub.cc.u32 w0, %1, s;\n\t"
+      "subc.cc.u32 w1, %2, sh;\n\t"
+      "subc.u32 k, 0, 0;\n\t"
+      "add.cc.u32 w1, w1, %3;\n\t"
+      "addc.u32 k, k, 0;\n\t"
+      "neg.s32 m, k;\n\t"
+      "shr.s32 h, k, 31;\n\t"
+      "add.cc.u32 w0, w0, m;\n\t"
+      "addc.u32 w1, w1, h;\n\t"
+      "mov.b64 %0, {w0, w1};\n\t"
+      "}"
+      : "=l"(out)
+      : "r"(r0), "r"(r1), "r"(r2), "r"(r3));
+  return out;
+}
+
+// (lo + hi 2^32) mod p, as some u64, for lo, hi < 2^42 (the MDS's split
+// accumulators): with words lo = a0 + a1 2^32, hi = b0 + b1 2^32,
+// V = a0 - b1 + (a1 + b0 + b1) 2^32 (2^64 = 2^32 - 1), -2^10 < V < 2^65.
+__device__ __forceinline__ uint64_t gl_reduce_split_lazy(uint64_t lo,
+                                                         uint64_t hi) {
+  uint64_t out;
+  asm("{\n\t"
+      ".reg .u32 w0, w1, s, sh, k, m, h;\n\t"
+      "add.cc.u32 s, %2, %3;\n\t"
+      "addc.u32 sh, 0, 0;\n\t"
+      "add.cc.u32 s, s, %4;\n\t"
+      "addc.u32 sh, sh, 0;\n\t"
+      "sub.cc.u32 w0, %1, %4;\n\t"
+      "subc.cc.u32 w1, s, 0;\n\t"
+      "subc.u32 k, sh, 0;\n\t"
+      "neg.s32 m, k;\n\t"
+      "shr.s32 h, k, 31;\n\t"
+      "add.cc.u32 w0, w0, m;\n\t"
+      "addc.u32 w1, w1, h;\n\t"
+      "mov.b64 %0, {w0, w1};\n\t"
+      "}"
+      : "=l"(out)
+      : "r"(gl_lo(lo)), "r"(gl_hi(lo)), "r"(gl_lo(hi)), "r"(gl_hi(hi)));
+  return out;
+}
+
+__device__ __forceinline__ uint64_t gl_mul_lazy(uint64_t a, uint64_t b) {
+  uint32_t r0, r1, r2, r3;
+  gl_mul_words(a, b, r0, r1, r2, r3);
+  return gl_reduce_words(r0, r1, r2, r3);
 }
 
 __device__ __forceinline__ uint64_t gl_mul(uint64_t a, uint64_t b) {
-  return gl_reduce128(a * b, __umul64hi(a, b));
+  return gl_canonicalize(gl_mul_lazy(a, b));
 }
 
 __device__ __forceinline__ uint64_t gl_sqr(uint64_t a) { return gl_mul(a, a); }

@@ -2,7 +2,8 @@
 //
 // Replaces city_rollup_tpu/core/pallas_poseidon.py:
 //   K3 permute_t -> _permute_kernel (pallas_poseidon.py:183; FRI grinding)
-//   K4 _sponge_t_impl -> _sponge_kernel (leaf hashing, every Merkle level)
+//   K4 _sponge_t_impl -> _sponge_kernel (leaf hashing, every Merkle level;
+//      merkle_level_kernel is its entry for one tree level)
 //   K5 absorb_t -> _absorb_kernel (the streamed commit's slab absorb)
 //
 // Layout. As in the reference, the data is transposed: column j of an
@@ -10,15 +11,16 @@
 // state lives in registers across all ceil(n/8) permutations, and a warp's
 // loads of row r touch 32 neighbouring u64 (coalesced).
 //
-// Bound. One permutation is ~470 Goldilocks multiplies (the S-boxes) and
-// 30 x 288 small-constant 32-bit multiply-adds (the MDS): counted as
-// chip_smoke.OPS_PERMUTATION integer operations per state, for all three
-// kernels alike. Against that a permutation moves at most 192 bytes (K3:
-// 12 u64 in, 12 out), and a 64-felt leaf takes 8 of them against 512 bytes
-// of input, so all three are bound by integer throughput, not memory bytes.
-// The design spends nothing on data movement inside a hash (no shared
-// memory, no re-reads) and keeps the MDS as immediate-constant
-// multiply-adds with one reduction per lane.
+// Bound. A permutation moves at most 192 bytes (K3: 12 u64 in, 12 out), and
+// a 64-felt leaf takes 8 of them against 512 bytes of input, while one
+// permutation is ~470 Goldilocks multiplies (the S-boxes) and 30 x 288
+// small-constant multiply-adds (the MDS), counted as
+// chip_smoke.OPS_PERMUTATION operations per state for all three kernels
+// alike: all three are bound by arithmetic, not memory bytes. The design
+// spends nothing on data movement inside a hash (no shared memory, no
+// re-reads); the core (poseidon.cuh) keeps the integer pipe, which sets the
+// pace, to the S-boxes and the reductions, and runs the MDS on the FP64
+// pipe beside it.
 #include <cuda_runtime.h>
 
 #include "poseidon.cuh"
@@ -75,17 +77,38 @@ __global__ void absorb_kernel(const uint64_t* state,
   for (int i = 0; i < POS_WIDTH; ++i) out[(size_t)i * B + j] = s[i];
 }
 
+// One Merkle level: children (4, 2B) -> parents (4, B). Parent j is the
+// sponge of columns 2j and 2j + 1 (8 felts, one permutation), read in place:
+// the children need no copy into an (8, B) input first.
+__global__ void merkle_level_kernel(const uint64_t* __restrict__ children,
+                                    uint64_t* __restrict__ out, size_t B) {
+  const size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= B) return;
+  uint64_t s[POS_WIDTH];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    s[i] = children[(size_t)i * 2 * B + 2 * j];
+    s[4 + i] = children[(size_t)i * 2 * B + 2 * j + 1];
+    s[8 + i] = 0;
+  }
+  pos_permute(s);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[(size_t)i * B + j] = s[i];
+}
+
 unsigned blocks_for(size_t B) {
   return (unsigned)((B + kThreads - 1) / kThreads);
 }
 
 }  // namespace
 
-// Copies the 360 round constants (host memory) into constant memory of the
-// current device. Called once per device before the first launch.
-extern "C" int city_poseidon_init(const uint64_t* round_constants) {
-  cudaMemcpyToSymbol(kRoundConstants, round_constants,
-                     sizeof(uint64_t) * POS_ROUNDS * POS_WIDTH);
+// Copies the tables (host memory, n u64 in PosTables order) into constant
+// memory of the current device. Called once per device before the first
+// launch. Returns -1 if n is not the size of PosTables.
+extern "C" int city_poseidon_init(const uint64_t* tables, long long n) {
+  if (n * (long long)sizeof(uint64_t) != (long long)sizeof(PosTables))
+    return -1;
+  cudaMemcpyToSymbol(kPos, tables, sizeof(PosTables));
   return (int)cudaGetLastError();
 }
 
@@ -113,5 +136,15 @@ extern "C" int city_poseidon_absorb(const uint64_t* state,
     absorb_kernel<<<blocks_for((size_t)B), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(state, chunk, out, k,
                                                          (size_t)B);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int city_poseidon_merkle_level(const uint64_t* children,
+                                          uint64_t* out, long long B,
+                                          void* stream) {
+  if (B > 0)
+    merkle_level_kernel<<<blocks_for((size_t)B), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(children, out,
+                                                               (size_t)B);
   return (int)cudaGetLastError();
 }

@@ -87,6 +87,20 @@ def test_sponge_kernel_matches_plain(cuda, n):
     assert torch.equal(got, cp.sponge_t_plain(x))
 
 
+@pytest.mark.parametrize("width", [2, 1 << 14])
+def test_merkle_level_kernel_matches_plain(cuda, width):
+    """K4's Merkle-level entry reads the children in place; its launches
+    count under poseidon_sponge."""
+    x = convert.from_u64(_cols(4, width, seed=width) if width > 8
+                         else _rand((4, width), width), cuda)
+    before = cp.LAUNCHES["poseidon_sponge"]
+    got = cp.reduce_level_t(x)
+    torch.cuda.synchronize()
+    assert cp.LAUNCHES["poseidon_sponge"] == before + 1
+    assert torch.equal(got, cp.reduce_level_t_plain(x))
+    assert torch.equal(got, cp.two_to_one_t(x[:, 0::2], x[:, 1::2]))
+
+
 @pytest.mark.parametrize("k", [3, 8])
 def test_absorb_kernel_matches_plain(cuda, k):
     state = convert.from_u64(_cols(12, 1 << 14, seed=k), cuda)

@@ -20,6 +20,7 @@ from city_rollup_tpu_torch import convert
 from city_rollup_tpu_torch.core import cuda_poseidon as cp
 from city_rollup_tpu_torch.core import merkle as tmerkle
 from city_rollup_tpu_torch.core import poseidon as tposeidon
+from city_rollup_tpu_torch.core import poseidon_host as t_host
 
 P = jg.P
 EDGE = [0, 1, P - 1, (1 << 32) - 1, 1 << 32, 1 << 63]
@@ -81,6 +82,22 @@ def test_permute_t_matches_pallas_and_host(interpret):
         convert.to_u64(cp.permute_t_plain(_t(x))), got)
     np.testing.assert_array_equal(
         convert.to_u64(tposeidon.permute(_t(x.T.copy()))), got.T)
+
+
+def test_host_permute_matches_reference():
+    """The port's host permutation (the CUDA core's schedule: fast partial
+    rounds) against the reference's round-by-round one, on seeded random
+    states and on states of edge values."""
+    edge = [0, 1, P - 1, (1 << 32) - 1, (1 << 32) + 1]
+    rng = np.random.default_rng(11)
+    states = [[int(v) for v in row]
+              for row in rng.integers(0, P, size=(24, 12), dtype=np.uint64)]
+    states += [[v] * 12 for v in edge]
+    states += [[int(v) for v in rng.choice(edge, size=12)] for _ in range(16)]
+    states += [[0] * i + [v] + [0] * (11 - i) for i in range(12)
+               for v in edge[1:]]
+    for state in states:
+        assert t_host.permute(state) == poseidon_host.permute(state)
 
 
 def test_permute_t_rejects_bad_shapes():
@@ -179,6 +196,26 @@ def test_batched_merkle_tree_matches_reference():
             leaf = tmerkle.h_hash_leaf([int(v) for v in leaves[b, i]])
             assert tmerkle.h_verify_merkle_proof(leaf, i, path, cap)
     np.testing.assert_array_equal(convert.to_u64(tree.cap), _u64(ref.cap))
+
+
+def test_reduce_level_t_plain_reads_strided_children():
+    """K4's Merkle-level entry on the CPU: the plain version over the
+    strided children, which every tree level takes; odd widths and other
+    row counts are refused."""
+    d = _cols(4, 64, seed=4)
+    got = convert.to_u64(cp.reduce_level_t(_t(d)))
+    want = np.array([poseidon_host.two_to_one([int(v) for v in d[:, 2 * j]],
+                                              [int(v) for v in d[:, 2 * j + 1]])
+                     for j in range(32)], dtype=np.uint64).T
+    np.testing.assert_array_equal(got, want)
+    # a transposed view (the layout BatchedMerkleTree hands it)
+    view = _t(d.T.copy()).T
+    assert not view.is_contiguous()
+    np.testing.assert_array_equal(convert.to_u64(cp.reduce_level_t(view)),
+                                  want)
+    for shape in [(4, 5), (8, 4), (4,)]:
+        with pytest.raises(ValueError):
+            cp.reduce_level_t(torch.zeros(shape, dtype=torch.int64))
 
 
 def test_absorb_rejects_bad_shapes():

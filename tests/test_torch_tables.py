@@ -15,6 +15,7 @@ from city_rollup_tpu.core import pallas_ntt as pn
 from city_rollup_tpu.core import poseidon_host as j_host
 from city_rollup_tpu.core import poseidon_params as j_params
 from city_rollup_tpu_torch.core import cuda_ntt as cn
+from city_rollup_tpu_torch.core import cuda_poseidon as cp
 from city_rollup_tpu_torch.core import ntt as tn
 from city_rollup_tpu_torch.core import poseidon_host as t_host
 from city_rollup_tpu_torch.core import poseidon_params as t_params
@@ -60,6 +61,36 @@ def test_kernel_mds_constants_match_params():
                          ("POS_HALF_FULL", 4), ("POS_PARTIAL", 22),
                          ("POS_ROUNDS", 30)]:
         assert re.search(rf"#define {macro} {value}\b", src), macro
+
+
+def test_kernel_table_layout():
+    """csrc/poseidon.cuh's PosTables, in the order and at the sizes that
+    cuda_poseidon copies them: the round constants, then the FP64 MDS's
+    start values 2^52 + each 32-bit word of each round's constants (and a
+    last row of 2^52), which are exact doubles."""
+    src = (PORT / "csrc/poseidon.cuh").read_text()
+    body = re.search(r"struct PosTables \{([^}]*)\}", src).group(1)
+    fields = re.findall(r"(uint64_t|double) (\w+)((?:\[[^\]]+\])+);", body)
+    dims = {"POS_ROUNDS": 30, "POS_WIDTH": 12, "POS_ROUNDS + 1": 31, "2": 2}
+    sizes = []
+    for _, _, shape in fields:
+        n = 1
+        for d in re.findall(r"\[([^\]]+)\]", shape):
+            n *= dims[d]
+        sizes.append(n)
+    assert [(t, f) for t, f, _ in fields] == [
+        ("uint64_t", "round_constants"), ("double", "mds_start")]
+    assert sizes == [360, 744]
+    tables = cp._TABLES_HOST
+    assert tables.dtype == np.uint64 and tables.size == sum(sizes)
+    assert [int(v) for v in tables[:360]] == j_params.ALL_ROUND_CONSTANTS
+    start = tables[360:].view(np.float64).reshape(31, 12, 2)
+    rc = j_params.ALL_ROUND_CONSTANTS + [0] * 12
+    for r in (0, 1, 17, 29, 30):
+        for i in range(12):
+            c = rc[r * 12 + i]
+            assert start[r, i, 0] == 2.0 ** 52 + (c & 0xFFFFFFFF)
+            assert start[r, i, 1] == 2.0 ** 52 + (c >> 32)
 
 
 @pytest.mark.parametrize("log_m", [0, 1, 5, 12])
