@@ -10,7 +10,11 @@ In order, it:
      registers and spills (-Xptxas -v) as one JSON line;
   3. holds each kernel bit for bit against its plain PyTorch version on the
      card, at the shapes the commit and FRI paths give it and at edge
-     values, K4's Merkle-level entry (reduce_level_t) included;
+     values: K1 and K2 at log_m 14, 23 (batch 1, and the one-shot commit's
+     64) and 25 (one streamed slab of 8) as coset LDEs, 8 (batch 1 and 8)
+     and 5 (inverse, with the output scaling); the tail kernel, off
+     those paths, directly and through a transform with MAX_KERNEL_LOG
+     lowered; K4's Merkle-level entry (reduce_level_t) included;
   4. holds the 2^10 x 16 seed-7 cap against GOLDEN_CAP, the reference
      package's output for the same input (pinned by
      tests/test_torch_pipeline.py), and the small seed-7 FRI proof against
@@ -25,8 +29,11 @@ In order, it:
      batch proof 0 == fri_prove of codeword 0 alone, and has the host
      fri_verify accept the full-width and one batch proof and reject the
      full-width proof with one final-poly coefficient changed;
-  7. times each kernel, its plain version and its bound;
-and prints one JSON line of kernels, then as its last line
+  7. times each kernel, its plain version and its bound, and the whole
+     coset LDE of one streamed slab and of the one-shot input against its
+     byte bound;
+and prints one JSON line of the LDE times, one of kernels, then as its last
+line
 {"ok": true, "device": {...}}. Any failure raises, and the exit code is then
 non-zero. Without CUDA, or without the port's package beside it, it fails
 before printing any result.
@@ -141,11 +148,34 @@ OPS_MULMOD = 16
 OPS_MDS_ENTRY = 4
 OPS_PERMUTATION = (8 * 12 * 4 + 22 * 4) * OPS_MULMOD + 30 * 144 * OPS_MDS_ENTRY
 
+
+
+def ntt_products(log_m: int, n_values: int) -> int:
+    """Full 64x64 products that ntt_block_kernel's passes do over n_values
+    values in transforms of 2^log_m: the twiddles between passes (all but
+    k = 0 of each radix-2^r group), and the radix twiddles 2^e that are
+    not a shift (e mod 96 >= 64; w_16 = 2^156). Shifts, adds and the
+    reductions are not counted."""
+    passes = max(1, -(-log_m // 4))
+    total = 0
+    for p in range(passes):
+        rl = log_m // passes + (p < log_m % passes)
+        r = 1 << rl
+        radix = sum(1 for s in range(rl) for i in range(r // 2)
+                    if (156 * (i & ((1 << s) - 1)) * (8 >> s)) % 96 >= 64)
+        total += n_values // r * radix
+        if p + 1 < passes:
+            total += n_values // r * (r - 1)
+    return total
+
+
 # The kernels each path must launch (by their LAUNCHES names). The FRI path
 # hashes every layer's tree levels (K4), grinds (K3) and interpolates the
 # final polynomial (K1, K2: log_m 8, so no tail stage).
-COMMIT_KERNELS = ("ntt_fourstep_tw", "ntt_block", "ntt_tail_stage",
-                  "poseidon_sponge", "poseidon_absorb")
+# The tail kernel runs only past K2's 2^13-value segments, which no commit
+# reaches; it is driven directly in the kernel checks.
+COMMIT_KERNELS = ("ntt_fourstep_tw", "ntt_block", "poseidon_sponge",
+                  "poseidon_absorb")
 FRI_KERNELS = ("ntt_fourstep_tw", "ntt_block", "poseidon_permute",
                "poseidon_sponge")
 
@@ -279,36 +309,66 @@ def main() -> int:
                 x[j, 64:128] = x[0, j]
         return x
 
+    def by_rows(plain, x, *args, rows=8):
+        """plain(x, *args), 8 batch rows at a time: K1 and K2 work row by
+        row, and the plain versions' limb temporaries over the one-shot
+        commit's 64 rows would not fit on the card beside the kernel's."""
+        return torch.cat([plain(x[i:i + rows], *args)
+                          for i in range(0, x.shape[0], rows)])
+
     # --- kernels against their plain versions ------------------------------
-    # NTT shapes: the commits' (log_m 14 and 23, forward), and FRI's final
-    # coset_intt (inverse): log_m 8 in the single proof (batch 1) and the
-    # B = 8 batch, log_m 5 in the golden proof
+    # K1 and K2 at the NTT shapes of the main path: the commits' coset LDEs
+    # (log_m 14; 23, batch 1 and the one-shot commit's 64, whose blocks run
+    # over the batch; 25: one streamed slab; the input 2^rate_bits times
+    # shorter, scaled by shift^j and padded inside K1), and FRI's final
+    # coset_intt (inverse, scaled by n^-1 shift^-k inside K2): log_m 8 in
+    # the single proof (batch 1) and the B = 8 batch, log_m 5 in the golden
+    # proof; and an intt (n^-1 only)
     t0 = time.perf_counter()
-    for log_m, batch, inverse in [(14, 3, False), (23, 1, False),
-                                  (8, 1, True), (8, 8, True), (5, 1, True)]:
+    for log_m, batch, log_in, mode in [
+            (14, 3, 11, "coset_lde"), (23, 1, 20, "coset_lde"),
+            (23, 64, 20, "coset_lde"), (25, 8, 22, "coset_lde"),
+            (8, 1, 8, "coset_intt"),
+            (8, 8, 8, "coset_intt"), (5, 1, 5, "coset_intt"),
+            (14, 3, 14, "intt")]:
         log_n2 = cn._split(log_m)
-        log_n1 = log_m - log_n2
-        ks1 = min(log_n1, cn.MAX_KERNEL_LOG)
-        a = with_edges(rand((batch << log_n1, 1 << log_n2)))
-        tw2 = cn._stage_table(log_n2, inverse, dev)
-        g = convert.from_u64(cn._gcol(log_m, log_n2, batch, batch << log_n1,
-                                      inverse), dev)
-        where = f"log_m={log_m} batch={batch} inverse={inverse}"
-        require_equal(cn._block_stages(a, tw2, g, log_n2),
-                      cn._block_stages_plain(a, tw2, g, log_n2),
+        x = with_edges(rand((batch, 1 << log_in)))
+        pre = tn._coset_table(log_in, 7, dev) if mode == "coset_lde" \
+            else None
+        scale = None if mode == "coset_lde" else cn._table(
+            "oscale", cn._out_scale, log_m,
+            7 if mode == "coset_intt" else None, device=dev)
+        where = f"log_m={log_m} batch={batch} {mode}"
+        y = cn._k1(x, log_m, log_n2, pre)
+        require_equal(y, by_rows(cn._k1_plain, x, log_m, log_n2, pre),
                       f"ntt_fourstep_tw {where}")
-        b = with_edges(rand((batch << log_n2, 1 << log_n1)))
-        tw1 = cn._stage_table(ks1, inverse, dev)
-        require_equal(cn._block_stages(b, tw1, None, ks1),
-                      cn._block_stages_plain(b, tw1, None, ks1),
+        y = with_edges(y.reshape(-1, min(128, y.shape[1]))).reshape(y.shape)
+        reverse = mode != "coset_lde"
+        require_equal(cn._k2(y, log_m, log_n2, 0, reverse, scale),
+                      by_rows(cn._k2_plain, y, log_m, log_n2, 0, reverse,
+                              scale),
                       f"ntt_block {where}")
-        x = rand((batch, 1 << log_m))
-        require_equal(tn.ntt(x, log_m),
-                      tn._ntt_core(x, tn._root_table(log_m, False, dev),
-                                   log_m),
-                      f"four-step ntt == radix-2 log_m={log_m} batch={batch}")
+        del x, y
+        if log_m <= 23 and batch < 64:
+            x = rand((batch, 1 << log_m))
+            require_equal(tn.ntt(x, log_m),
+                          tn._ntt_core(x, tn._root_table(log_m, False, dev),
+                                       log_m),
+                          f"four-step ntt == radix-2 log_m={log_m} "
+                          f"batch={batch}")
+        torch.cuda.empty_cache()
+    # the tail kernel: no commit or FRI size reaches it (a block holds
+    # transforms up to 2^13), so it is driven here, directly and through a
+    # transform with MAX_KERNEL_LOG lowered (log_m 14 -> K1 2^5, K2
+    # segments 2^5 + 4 tail stages)
+    x = with_edges(rand((6, 1 << 13)))
+    tt = cn._stage_table(13, dev)
+    for s in (0, 12):
+        require_equal(cn._tail_stage(x, s, 13, tt),
+                      cn._tail_stage_plain(x, s, 13, tt),
+                      f"ntt_tail_stage (6, 2^13) stage {s}")
     saved = cn.MAX_KERNEL_LOG
-    cn.MAX_KERNEL_LOG = 5           # log_m 14 -> 5 block + 4 tail stages
+    cn.MAX_KERNEL_LOG = 5
     try:
         x = rand((3, 1 << 14))
         require_equal(tn.ntt(x, 14),
@@ -539,42 +599,62 @@ def main() -> int:
             f"ms, bound {max(t_bytes, t_ops):.4f} ms")
         torch.cuda.empty_cache()
 
-    # the NTT kernels at one 8-poly slab of the 2^22 streamed commit (log_m 25)
-    log_m = 22 + RATE_BITS
+    # the NTT kernels at one 8-poly slab of the 2^22 streamed commit:
+    # coefficients (8, 2^22) -> LDE (8, 2^25), n2 = 2^12, n1 = 2^13
+    log_in, log_m = 22, 22 + RATE_BITS
     log_n2 = cn._split(log_m)
     log_n1 = log_m - log_n2
-    ks1 = min(log_n1, cn.MAX_KERNEL_LOG)
-    n_val = 8 << log_m
-    a = rand((8 << log_n1, 1 << log_n2))
-    tw2 = cn._stage_table(log_n2, False, dev)
-    g = convert.from_u64(cn._gcol(log_m, log_n2, 8, 8 << log_n1, False), dev)
+    n_in, n_val = 8 << log_in, 8 << log_m
+    x = rand((8, 1 << log_in))
+    pre = tn._coset_table(log_in, 7, dev)
+    pw2 = cn._table("pw", cn._pow_cols, log_n2, device=dev)
+    tw = cn._table("tw", cn._tw_cols, log_m, device=dev)
     measure("ntt_fourstep_tw", "city_rollup_tpu_torch/csrc/ntt.cu",
             "city_rollup_tpu/core/pallas_ntt.py:183",
-            list(a.shape),
-            lambda: cn._block_stages(a, tw2, g, log_n2),
-            lambda: cn._block_stages_plain(a, tw2, g, log_n2), 5,
-            16 * n_val + 8 * (g.numel() + tw2.numel()),
-            (log_n2 * n_val // 2 + n_val) * OPS_MULMOD)
-    del a, g
-    b = rand((8 << log_n2, 1 << log_n1))
-    tw1 = cn._stage_table(ks1, False, dev)
+            [list(x.shape), [8, 1 << log_m]],
+            lambda: cn._k1(x, log_m, log_n2, pre),
+            lambda: cn._k1_plain(x, log_m, log_n2, pre), 5,
+            8 * (n_in + n_val + pre.numel() + pw2.numel() + tw.numel()),
+            (n_in + 2 * n_val + ntt_products(log_n2, n_val))
+            * OPS_MULMOD)
+    y = cn._k1(x, log_m, log_n2, pre)
+    del x
+    pw1 = cn._table("pw", cn._pow_cols, log_n1, device=dev)
     measure("ntt_block", "city_rollup_tpu_torch/csrc/ntt.cu",
             "city_rollup_tpu/core/pallas_ntt.py:176",
-            list(b.shape),
-            lambda: cn._block_stages(b, tw1, None, ks1),
-            lambda: cn._block_stages_plain(b, tw1, None, ks1), 5,
-            16 * n_val + 8 * tw1.numel(),
-            ks1 * n_val // 2 * OPS_MULMOD)
-    if log_n1 > ks1:
-        tt1 = cn._stage_table(log_n1, False, dev)
-        s = ks1
-        measure("ntt_tail_stage", "city_rollup_tpu_torch/csrc/ntt.cu",
-                "city_rollup_tpu/core/pallas_ntt.py:204",
-                list(b.shape) + [f"stage {s}"],
-                lambda: cn._tail_stage(b, s, log_n1, tt1),
-                lambda: cn._tail_stage_plain(b, s, log_n1, tt1), 5,
-                16 * n_val + 8 * (1 << s), n_val // 2 * OPS_MULMOD)
+            [8, 1 << log_m],
+            lambda: cn._k2(y, log_m, log_n2),
+            lambda: cn._k2_plain(y, log_m, log_n2), 5,
+            8 * (2 * n_val + pw1.numel()),
+            ntt_products(log_n1, n_val) * OPS_MULMOD)
+    del y
+    # the tail kernel, off the main path now, at its former shape there:
+    # stage 12 of (8 * 2^12) rows of 2^13
+    b = rand((8 << 12, 1 << 13))
+    tt = cn._stage_table(13, dev)
+    measure("ntt_tail_stage", "city_rollup_tpu_torch/csrc/ntt.cu",
+            "city_rollup_tpu/core/pallas_ntt.py:204",
+            list(b.shape) + ["stage 12"],
+            lambda: cn._tail_stage(b, 12, 13, tt),
+            lambda: cn._tail_stage_plain(b, 12, 13, tt), 5,
+            16 * n_val + 8 * (1 << 12), n_val // 2 * OPS_MULMOD)
     del b
+    torch.cuda.empty_cache()
+    # the whole coset LDE (K1 + K2) of one streamed slab and of the
+    # one-shot commit; its byte bound: the coefficients read once, the
+    # intermediate written and read once, the LDE written once
+    ldes = []
+    for lb, ln in [(8, 22), (64, 20)]:
+        c = rand((lb, 1 << ln))
+        nb = 8 * lb * ((1 << ln) + 3 * (1 << (ln + RATE_BITS)))
+        t = cuda_ms(lambda: tn.coset_lde(c, ln, RATE_BITS), 5)
+        ldes.append({"shape": [[lb, 1 << ln], [lb, 1 << (ln + RATE_BITS)]],
+                     "ms": t, "bound_ms": nb / MEM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes"})
+        log(f"time coset_lde ({lb}, 2^{ln}) -> ({lb}, 2^{ln + RATE_BITS}): "
+            f"{t:.4f} ms, byte bound {nb / MEM_BYTES_PER_S * 1e3:.4f} ms")
+        del c
+        torch.cuda.empty_cache()
     # the leaf hash of the 2^20 x 64 one-shot commit
     leaves = rand((64, 1 << 23))
     measure("poseidon_sponge", "city_rollup_tpu_torch/csrc/poseidon.cu",
@@ -611,6 +691,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"no timing for {sorted(missing)}")
     log(card)
+    log(json.dumps({"coset_lde": ldes}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

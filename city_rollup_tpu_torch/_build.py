@@ -33,7 +33,8 @@ _LL = ctypes.c_longlong
 # argtypes of every C entry, by library
 SIGNATURES = {
     "ntt": {
-        "city_ntt_block": (_P, _P, _P, _P, _LL, _I, _P),
+        "city_ntt_k1": (_P, _P, _P, _P, _P, _LL) + (_I,) * 6 + (_P,),
+        "city_ntt_k2": (_P, _P, _P, _P, _LL) + (_I,) * 7 + (_P,),
         "city_ntt_tail": (_P, _P, _P, _LL, _I, _I, _P),
     },
     "poseidon": {

@@ -1,24 +1,24 @@
 """Four-step NTT / coset LDE over Goldilocks with hand-written CUDA kernels.
 
 Counterpart of the reference's ``core/pallas_ntt.py``. A length-N transform
-(N = n2 * n1) runs as:
+(N = n2 * n1) is the (n2, n1) matrix x[a * n1 + c]:
 
-  1. one gather: the (n2, n1) matrix view with its n2 axis bit-reversed,
-     laid out so that every length-n2 transform is one contiguous row;
-  2. kernel K1 (``csrc/ntt.cu``, ntt_block_kernel<true>): all log2(n2)
-     butterfly stages of each row in shared memory, then value k2 of the
-     row for column c multiplied by w_N^(c * k2);
-  3. one gather: the transpose, bit-reversed along n1, again one row per
-     transform;
-  4. kernel K2 (ntt_block_kernel<false>): the first min(log2(n1),
-     MAX_KERNEL_LOG) stages per contiguous 2^ks segment, then one
-     ``_tail_stage`` kernel pass for each stage left;
-  5. one transpose back to natural order.
+  1. kernel K1 (``csrc/ntt.cu``, ntt_block_kernel<true>): for each column c
+     the length-n2 DFT over a, times w_N^(c * k2), stored tiled (``_tile``).
+     It reads the input rows as they are: an LDE's coefficients, scaled by
+     shift^j on the way in, with the zero padding never read or written;
+  2. kernel K2 (ntt_block_kernel<false>): for each row k2 the length-n1 DFT
+     over c, stored at X[k1 * n2 + k2] in natural order, or at -k mod N for
+     an inverse transform, times n^-1 (and shift^-k for a coset).
 
-The reference lays each transform down the TPU's sublanes instead, (m, L)
-with the lanes across; here ``_small_ntt`` and ``_tail_stage`` take (L, m),
-one transform per row, which is what lets a GPU block read its segment with
-coalesced loads (see the note in ``csrc/ntt.cu``).
+The reference gathers, bit-reverses and transposes around its two kernels,
+and scales and pads in jnp; here the kernels do all of it, so an LDE makes
+one intermediate and one output (see the note in ``csrc/ntt.cu``).
+
+A K2 row longer than 2^MAX_KERNEL_LOG runs as segments: K2 writes the first
+stages of a DIT transform per segment in row layout, one ``_tail_stage``
+kernel pass runs each stage left, and a torch transpose restores natural
+order. No commit or FRI size needs it (2^25 = 2^13 x 2^12 is the largest).
 
 Every kernel wrapper launches its kernel on a CUDA tensor (or raises), runs
 its plain PyTorch version on a CPU tensor, and counts its launches in
@@ -36,10 +36,14 @@ from .. import _build
 from . import gl64
 from . import ntt as tntt
 
-# Stages run inside one block-kernel launch: a 2^12-value segment is 32 KB
-# of shared memory. Longer transforms finish with _tail_stage passes. A
-# test may lower it to reach the tail stages at small sizes.
-MAX_KERNEL_LOG = 12
+# Log length of the longest transform a block runs, K1's columns and K2's
+# rows (or segments of a longer row): two transforms of 2^13 values fill
+# 128 KB of shared memory. A test may lower it to reach the tail stages at
+# small sizes.
+MAX_KERNEL_LOG = 13
+# The radix-16 twiddles in csrc/ntt.cu are powers of 2: w_16 = 2^W16_LOG2
+# (its kW16Log2).
+W16_LOG2 = 156
 
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"ntt_fourstep_tw": 0, "ntt_block": 0, "ntt_tail_stage": 0}
@@ -49,12 +53,38 @@ LAUNCHES = {"ntt_fourstep_tw": 0, "ntt_block": 0, "ntt_tail_stage": 0}
 # Host tables (cached; copied to each device once through ntt._dev_table)
 # ---------------------------------------------------------------------------
 
+def _root(log_m: int) -> int:
+    return gl64.h_primitive_root_of_unity(log_m)
+
+
+@functools.lru_cache(maxsize=None)
+def _pow_cols(log_m: int) -> np.ndarray:
+    """(m,) uint64: w_m^e for e < m, the twiddles between a block's
+    passes (w_L^(a k) = w_m^(a k m / L))."""
+    return gl64.np_powers(_root(log_m), 1 << log_m)
+
+
+def _tw_split(log_n: int) -> int:
+    return (log_n + 1) // 2
+
+
+@functools.lru_cache(maxsize=None)
+def _tw_cols(log_n: int) -> np.ndarray:
+    """w_N^e as two tables, w_N^e = T[e & (2^h - 1)] * T[2^h + (e >> h)]:
+    K1's four-step twiddles w_N^(c k2)."""
+    h = _tw_split(log_n)
+    w = _root(log_n)
+    return np.concatenate([gl64.np_powers(w, 1 << h),
+                           gl64.np_powers(gl64.h_exp(w, 1 << h),
+                                          1 << (log_n - h))])
+
+
 @functools.lru_cache(maxsize=None)
 def _stage_twiddle_cols(log_m: int, inverse: bool) -> np.ndarray:
     """(log_m * m,) uint64: rows [s*m + i] = w^((i & (2^s-1)) * m >> (s+1)),
     the per-row butterfly twiddle for stage s in the rolled formulation."""
     m = 1 << log_m
-    w = gl64.h_primitive_root_of_unity(log_m)
+    w = _root(log_m)
     if inverse:
         w = gl64.h_inverse(w)
     pw = gl64.np_powers(w, max(m // 2, 1))
@@ -68,32 +98,55 @@ def _stage_twiddle_cols(log_m: int, inverse: bool) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _gcol(log_n: int, log_n2: int, b: int, lanes_padded: int,
-          inverse: bool) -> np.ndarray:
-    """(lanes_padded,) uint64 four-step twiddle seeds: lane r (= bb*n1 + c)
-    carries g = w_N^c; the kernel raises it to k2 along the transform."""
-    n1 = 1 << (log_n - log_n2)
-    w = gl64.h_primitive_root_of_unity(log_n)
-    if inverse:
-        w = gl64.h_inverse(w)
-    pw = gl64.np_powers(w, n1)
-    out = np.zeros(lanes_padded, dtype=np.uint64)
-    out[:b * n1] = np.tile(pw, b)
-    return out
+def _out_scale(log_n: int, shift) -> np.ndarray:
+    """An inverse transform's output factors: n^-1, times shift^-k at
+    output k for a coset (shift not None)."""
+    n_inv = gl64.h_inverse(1 << log_n)
+    if shift is None:
+        return np.array([n_inv], dtype=np.uint64)
+    pw = gl64.np_powers(gl64.h_inverse(shift % gl64.P), 1 << log_n)
+    return gl64.np_mul(pw, np.uint64(n_inv))
 
 
-def _stage_table(log_m: int, inverse: bool, device) -> torch.Tensor:
-    return tntt._dev_table(("stw", log_m, inverse),
-                           lambda: _stage_twiddle_cols(log_m, inverse),
-                           device)
+def _table(name: str, fn, *args, device) -> torch.Tensor:
+    return tntt._dev_table((name,) + args, lambda: fn(*args), device)
+
+
+def _stage_table(log_m: int, device) -> torch.Tensor:
+    return _table("stw", _stage_twiddle_cols, log_m, False, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _check_w16() -> None:
+    if pow(2, W16_LOG2, gl64.P) != _root(4):
+        raise AssertionError("w_16 is not 2^W16_LOG2: csrc/ntt.cu's radix-16 "
+                             "twiddles do not match this root")
 
 
 def _split(log_n: int) -> int:
-    """log_n2 (first-kernel transform size). Balanced, but capped at
-    MAX_KERNEL_LOG: the four-step twiddle runs inside kernel 1, so that
-    transform must fit a single block; kernel 2 spills its cross-block
-    stages to _tail_stage passes instead."""
-    return min(log_n // 2, MAX_KERNEL_LOG)
+    """log_n2 (K1's transform size): the larger half, capped at
+    MAX_KERNEL_LOG. K1 reads only an LDE's 2^-rate_bits nonzero rows, so it
+    takes the longer transforms (2^25 = 2^13 x 2^12), and K2, which writes
+    every value with a stride, the shorter ones in more columns a block."""
+    return min(log_n - log_n // 2, MAX_KERNEL_LOG)
+
+
+def _segment_log(log_n1: int) -> int:
+    """Log length of K2's segments of a row of 2^log_n1."""
+    return min(log_n1, MAX_KERNEL_LOG)
+
+
+def _launch_shape(log_m: int, max_log_cols: int) -> tuple[int, int]:
+    """(log_cols, threads) of a K1 or K2 block running transforms of
+    2^log_m: up to 4 neighbouring transforms in at most 128 KB of shared
+    memory, and 512 threads where that leaves room for one block an SM,
+    else 256 (the fastest on the card, PERF.md)."""
+    log_cols = max(0, min(2, max_log_cols, 14 - log_m))
+    return log_cols, 512 if log_m + log_cols == 14 else 256
+
+
+def _tile_log(log_n2: int) -> int:
+    return min(log_n2, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -101,33 +154,72 @@ def _split(log_n: int) -> int:
 # the card)
 # ---------------------------------------------------------------------------
 
-def _block_stages_plain(x: torch.Tensor, tw: torch.Tensor, g, ks: int):
-    """Plain version of ntt_block_kernel: x (R, m), m a multiple of 2^ks,
-    its values bit-reversed per 2^ks segment. Runs the ks DIT stages of
-    every segment; with g (R,), also multiplies value k of row r by
-    g[r]^k (then m must be 2^ks)."""
-    mk = 1 << ks
-    rows = x.shape[0]
-    segs = x.reshape(-1, mk)
-    for s in range(ks):
-        half = 1 << s
-        v = segs.reshape(segs.shape[0], mk // (2 * half), 2, half)
-        even, odd = v[:, :, 0, :], v[:, :, 1, :]
-        t = gl64.mul(odd, tw[s * mk:s * mk + half])
-        segs = torch.stack([gl64.add(even, t), gl64.sub(even, t)], dim=2)
-        segs = segs.reshape(-1, mk)
-    y = segs.reshape(x.shape)
-    if g is None:
-        return y
-    # binary exponentiation over the bits of k, as the reference builds it
-    k = torch.arange(mk, device=x.device)
-    pw = torch.ones_like(y)
-    gp = g.reshape(rows, 1)
-    for t in range(ks):
-        bit = ((k >> t) & 1) == 1
-        pw = torch.where(bit, gl64.mul(pw, gp), pw)
-        gp = gl64.mul(gp, gp)
-    return gl64.mul(y, pw)
+def _tile(y: torch.Tensor, log_n2: int) -> torch.Tensor:
+    """(b, n1, n2) Y[c, k2] -> (b, N) tiled: ((k2 / T) n1 + c) T + k2 % T."""
+    b, n1, n2 = y.shape
+    t = 1 << _tile_log(log_n2)
+    return y.reshape(b, n1, n2 // t, t).permute(0, 2, 1, 3).reshape(b, -1)
+
+
+def _untile(y: torch.Tensor, log_n: int, log_n2: int) -> torch.Tensor:
+    """(b, N) tiled -> (b, n2, n1) rows Y[k2, :]."""
+    n2, n1 = 1 << log_n2, 1 << (log_n - log_n2)
+    t = 1 << _tile_log(log_n2)
+    return y.reshape(-1, n2 // t, n1, t).permute(0, 1, 3, 2).reshape(
+        -1, n2, n1)
+
+
+def _tw_pow_plain(e: torch.Tensor, log_n: int) -> torch.Tensor:
+    h = _tw_split(log_n)
+    tw = _table("tw", _tw_cols, log_n, device=e.device)
+    return gl64.mul(tw[e & ((1 << h) - 1)], tw[(1 << h) + (e >> h)])
+
+
+def _dft_rows(x: torch.Tensor, log_m: int) -> torch.Tensor:
+    return tntt._ntt_core(x, tntt._root_table(log_m, False, x.device), log_m)
+
+
+def _k1_plain(x: torch.Tensor, log_n: int, log_n2: int,
+              pre=None) -> torch.Tensor:
+    """Plain version of K1: x (b, n_in), n_in <= N = 2^log_n, the first
+    n_in values of each length-N row (the rest zero), times pre (n_in,)
+    if given. Returns Y[k2, c] = w_N^(c k2) * sum_a x[a n1 + c] w_n2^(a k2),
+    tiled (b, N)."""
+    b, n_in = x.shape
+    n2, n1 = 1 << log_n2, 1 << (log_n - log_n2)
+    if pre is not None:
+        x = gl64.mul(x, pre)
+    full = x.new_zeros((b, n2 * n1))
+    full[:, :n_in] = x
+    cols = full.reshape(b, n2, n1).transpose(1, 2).reshape(b * n1, n2)
+    y = _dft_rows(cols, log_n2).reshape(b, n1, n2)
+    e = (torch.arange(n1, device=x.device).reshape(n1, 1) *
+         torch.arange(n2, device=x.device).reshape(1, n2))
+    return _tile(gl64.mul(y, _tw_pow_plain(e, log_n)), log_n2)
+
+
+def _k2_plain(y: torch.Tensor, log_n: int, log_n2: int, log_t: int = 0,
+              reverse: bool = False, scale=None) -> torch.Tensor:
+    """Plain version of K2 on K1's tiled (b, N) output. log_t = 0: the
+    length-n1 DFT of every row k2, X[k1 n2 + k2] (b, N), at -k mod N if
+    reverse, times scale[k] (scale of length N, or 1 for a constant).
+    log_t > 0: (b n2, n1) rows, position s 2^seg + k' holding the DFT over u
+    of Y[k2, brev_t(s) + 2^t u] (seg = log_n1 - log_t)."""
+    n = 1 << log_n
+    n2, log_n1 = 1 << log_n2, log_n - log_n2
+    rows = _untile(y, log_n, log_n2).reshape(-1, 1 << log_n1)
+    if log_t:
+        seg = log_n1 - log_t
+        sub = rows.reshape(-1, 1 << seg, 1 << log_t).transpose(1, 2)
+        sub = sub.index_select(1, tntt._perm(log_t, y.device))
+        return _dft_rows(sub.reshape(-1, 1 << seg), seg).reshape(rows.shape)
+    x = _dft_rows(rows, log_n1).reshape(-1, n2, 1 << log_n1)
+    x = x.transpose(1, 2).reshape(-1, n)
+    if reverse:
+        x = x.index_select(1, (-torch.arange(n, device=y.device)) % n)
+    if scale is not None:
+        x = gl64.mul(x, scale.expand(n) if scale.numel() == 1 else scale)
+    return x
 
 
 def _tail_stage_plain(x: torch.Tensor, s: int, log_m: int,
@@ -146,34 +238,75 @@ def _tail_stage_plain(x: torch.Tensor, s: int, log_m: int,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _block_stages(x: torch.Tensor, tw: torch.Tensor, g, ks: int):
-    """K1 (with g) or K2 (without): see _block_stages_plain."""
-    mk = 1 << ks
-    if x.dim() != 2 or x.shape[1] % mk:
-        raise ValueError(f"rows of {tuple(x.shape)} are not 2^{ks} segments")
-    if tw.numel() != ks * mk:
-        raise ValueError("stage twiddle table has the wrong size")
-    if g is not None and (x.shape[1] != mk or g.numel() != x.shape[0]):
-        raise ValueError("four-step seeds need one 2^ks row per seed")
+def _k1(x: torch.Tensor, log_n: int, log_n2: int, pre=None) -> torch.Tensor:
+    """K1: see _k1_plain."""
+    if x.dim() != 2:
+        raise ValueError(f"K1 takes (b, n_in), not {tuple(x.shape)}")
+    b, n_in = x.shape
+    log_n1 = log_n - log_n2
+    if not 0 <= log_n2 <= MAX_KERNEL_LOG or log_n1 < 0 or \
+            n_in & (n_in - 1) or not 0 < n_in <= 1 << log_n:
+        raise ValueError(f"K1: bad shape {tuple(x.shape)} for 2^{log_n2} x "
+                         f"2^{log_n1}")
+    if pre is not None and pre.numel() != n_in:
+        raise ValueError("K1: pre needs one factor per input value")
     if not x.is_cuda:
-        return _block_stages_plain(x, tw, g, ks)
-    tensors = (x, tw) if g is None else (x, tw, g)
-    _build.require_cuda("ntt_block", *tensors)
+        return _k1_plain(x, log_n, log_n2, pre)
+    _check_w16()
+    dev = x.device
+    pw = _table("pw", _pow_cols, log_n2, device=dev)
+    tw = _table("tw", _tw_cols, log_n, device=dev)
+    tensors = (x, pw, tw) if pre is None else (x, pw, tw, pre)
+    _build.require_cuda("ntt_k1", *tensors)
     lib = _build.load("ntt")
-    out = torch.empty_like(x)
-    rc = lib.city_ntt_block(x.data_ptr(), out.data_ptr(), tw.data_ptr(),
-                            None if g is None else g.data_ptr(),
-                            x.numel() >> ks, ks, _build.stream(x))
-    _build.check(rc, "city_ntt_block")
-    LAUNCHES["ntt_block" if g is None else "ntt_fourstep_tw"] += 1
+    out = torch.empty((b, 1 << log_n), dtype=torch.int64, device=dev)
+    log_cols, threads = _launch_shape(log_n2, log_n1)
+    rc = lib.city_ntt_k1(x.data_ptr(), out.data_ptr(), pw.data_ptr(),
+                         tw.data_ptr(), None if pre is None else
+                         pre.data_ptr(), n_in, b, log_n2, log_n1,
+                         _tw_split(log_n), log_cols, threads,
+                         _build.stream(x))
+    _build.check(rc, "city_ntt_k1")
+    LAUNCHES["ntt_fourstep_tw"] += 1
     return out
+
+
+def _k2(y: torch.Tensor, log_n: int, log_n2: int, log_t: int = 0,
+        reverse: bool = False, scale=None) -> torch.Tensor:
+    """K2: see _k2_plain."""
+    n = 1 << log_n
+    log_n1 = log_n - log_n2
+    if y.dim() != 2 or y.shape[1] != n or not 0 <= log_t < max(log_n1, 1):
+        raise ValueError(f"K2: bad shape {tuple(y.shape)} for 2^{log_n}")
+    if log_t and (reverse or scale is not None):
+        raise ValueError("K2: a segmented transform is scaled after its "
+                         "tail stages")
+    if scale is not None and scale.numel() not in (1, n):
+        raise ValueError("K2: scale needs 1 or N factors")
+    if not y.is_cuda:
+        return _k2_plain(y, log_n, log_n2, log_t, reverse, scale)
+    _check_w16()
+    dev = y.device
+    pw = _table("pw", _pow_cols, log_n1 - log_t, device=dev)
+    tensors = (y, pw) if scale is None else (y, pw, scale)
+    _build.require_cuda("ntt_k2", *tensors)
+    lib = _build.load("ntt")
+    out = torch.empty_like(y)
+    log_cols, threads = _launch_shape(log_n1 - log_t, _tile_log(log_n2))
+    rc = lib.city_ntt_k2(y.data_ptr(), out.data_ptr(), pw.data_ptr(),
+                         None if scale is None else scale.data_ptr(),
+                         0 if scale is None else scale.numel() - 1,
+                         y.shape[0], log_n2, log_n1, log_t, int(reverse),
+                         log_cols, threads, _build.stream(y))
+    _build.check(rc, "city_ntt_k2")
+    LAUNCHES["ntt_block"] += 1
+    return out if not log_t else out.reshape(-1, 1 << log_n1)
 
 
 def _tail_stage(x: torch.Tensor, s: int, log_m: int,
                 tt: torch.Tensor) -> torch.Tensor:
     """One cross-block DIT butterfly stage (rows of 2^log_m, stage s), for
-    the stages past MAX_KERNEL_LOG that one block cannot hold. tt: the
-    full-length (log_m * m) stage-twiddle table."""
+    the stages past a K2 segment. tt: the full-length (log_m * m) table."""
     if x.dim() != 2 or x.shape[1] != 1 << log_m or not 0 <= s < log_m:
         raise ValueError(f"bad tail stage {s} of 2^{log_m} on {x.shape}")
     if tt.numel() != log_m << log_m:
@@ -190,64 +323,42 @@ def _tail_stage(x: torch.Tensor, s: int, log_m: int,
     return out
 
 
-def _small_ntt(x: torch.Tensor, tw: torch.Tensor, g, log_m: int,
-               tt=None) -> torch.Tensor:
-    """(L, m) -> (L, m): one length-m transform per row, input rows in
-    bit-reversed order. g (L,) enables the four-step twiddle (then
-    log_m <= MAX_KERNEL_LOG); None for the plain second transform.
-
-    The block kernel runs the first ks = min(log_m, MAX_KERNEL_LOG) stages
-    (tw: the length-2^ks stage table); the cross-block stages left run as
-    _tail_stage passes (tt: the full-length table)."""
-    ks = min(log_m, MAX_KERNEL_LOG)
-    if g is not None and log_m > MAX_KERNEL_LOG:
-        raise ValueError("the four-step twiddle needs log_m <= "
-                         "MAX_KERNEL_LOG")
-    y = _block_stages(x, tw, g, ks)
-    for s in range(ks, log_m):
-        y = _tail_stage(y, s, log_m, tt)
-    return y
-
-
 # ---------------------------------------------------------------------------
 # Four-step orchestration
 # ---------------------------------------------------------------------------
 
-def _fourstep(x: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
-    """(b, n) -> (b, n) NTT (inverse: with w^-1, unscaled)."""
+def _fourstep(x: torch.Tensor, log_n: int, pre=None, reverse: bool = False,
+              scale=None) -> torch.Tensor:
+    """(b, n_in) -> (b, N) NTT of each row zero-padded to N = 2^log_n and
+    multiplied by pre; with reverse, output k is at -k mod N; then times
+    scale (1 or N factors)."""
     b = x.shape[0]
-    n = 1 << log_n
     log_n2 = _split(log_n)
     log_n1 = log_n - log_n2
-    n2, n1 = 1 << log_n2, 1 << log_n1
-    log_k1 = min(log_n1, MAX_KERNEL_LOG)
-    dev = x.device
-    tw2 = _stage_table(log_n2, inverse, dev)
-    tw1 = _stage_table(log_k1, inverse, dev)
-    tt1 = _stage_table(log_n1, inverse, dev) if log_n1 > log_k1 else None
-    g = tntt._dev_table(("pg", log_n, log_n2, b, inverse),
-                        lambda: _gcol(log_n, log_n2, b, b * n1, inverse),
-                        dev)
-    # step 1: row bb*n1 + c holds x[bb, brev2[i]*n1 + c] at column i
-    a = x.reshape(b, n2, n1).transpose(1, 2)
-    a = a.index_select(2, tntt._perm(log_n2, dev)).reshape(b * n1, n2)
-    # step 2: length-n2 transforms + four-step twiddle w_N^(c * k2)
-    y = _small_ntt(a, tw2, g, log_n2)
-    # step 3: row bb*n2 + k2 holds y[bb*n1 + brev1[i], k2] at column i
-    bt = y.reshape(b, n1, n2).transpose(1, 2)
-    bt = bt.index_select(2, tntt._perm(log_n1, dev)).reshape(b * n2, n1)
-    # step 4: length-n1 transforms
-    c = _small_ntt(bt, tw1, None, log_n1, tt1)
-    # step 5: out[bb, k1*n2 + k2] = c[bb*n2 + k2, k1]
-    return c.reshape(b, n2, n1).transpose(1, 2).reshape(b, n)
-
-
-def _run(x: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
+    y = _k1(x, log_n, log_n2, pre)
+    log_t = log_n1 - _segment_log(log_n1)
+    if not log_t:
+        return _k2(y, log_n, log_n2, 0, reverse, scale)
+    rows = _k2(y, log_n, log_n2, log_t)
+    tt = _stage_table(log_n1, x.device)
+    for s in range(log_n1 - log_t, log_n1):
+        rows = _tail_stage(rows, s, log_n1, tt)
     n = 1 << log_n
-    if x.shape[-1] != n:
-        raise ValueError(f"last axis is {x.shape[-1]}, expected {n}")
-    shape = x.shape
-    return _fourstep(x.reshape(-1, n), log_n, inverse).reshape(shape)
+    out = rows.reshape(b, 1 << log_n2, 1 << log_n1).transpose(1, 2)
+    out = out.reshape(b, n)
+    if reverse:
+        out = out.index_select(1, (-torch.arange(n, device=x.device)) % n)
+    if scale is not None:
+        out = gl64.mul(out, scale.expand(n) if scale.numel() == 1 else scale)
+    return out
+
+
+def _run(x: torch.Tensor, log_n: int, n_in: int, **kw) -> torch.Tensor:
+    if x.shape[-1] != n_in:
+        raise ValueError(f"last axis is {x.shape[-1]}, expected {n_in}")
+    lead = x.shape[:-1]
+    y = _fourstep(x.reshape(-1, n_in).contiguous(), log_n, **kw)
+    return y.reshape(lead + (1 << log_n,))
 
 
 # ---------------------------------------------------------------------------
@@ -255,26 +366,28 @@ def _run(x: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def ntt(x: torch.Tensor, log_n: int) -> torch.Tensor:
-    return _run(x, log_n, inverse=False)
+    return _run(x, log_n, 1 << log_n)
 
 
 def intt(x: torch.Tensor, log_n: int) -> torch.Tensor:
-    return tntt._scale_const(_run(x, log_n, inverse=True),
-                             gl64.h_inverse(1 << log_n))
+    return _run(x, log_n, 1 << log_n, reverse=True,
+                scale=_table("oscale", _out_scale, log_n, None,
+                             device=x.device))
 
 
 def coset_lde(coeffs: torch.Tensor, log_n: int, rate_bits: int,
               shift: int = gl64.MULTIPLICATIVE_GROUP_GENERATOR
               ) -> torch.Tensor:
     """coeffs (..., 2^log_n) -> evals (..., 2^(log_n+rate_bits)) on the
-    coset shift*<w> — the commit's hot path."""
-    padded = tntt._coset_scale_pad(coeffs, log_n, rate_bits, shift)
-    return ntt(padded, log_n + rate_bits)
+    coset shift*<w> — the commit's hot path. K1 scales by shift^j and pads
+    as it reads."""
+    pre = tntt._coset_table(log_n, shift % gl64.P, coeffs.device)
+    return _run(coeffs, log_n + rate_bits, 1 << log_n, pre=pre)
 
 
 def coset_intt(evals: torch.Tensor, log_m: int,
                shift: int = gl64.MULTIPLICATIVE_GROUP_GENERATOR
                ) -> torch.Tensor:
-    inv_shift = gl64.h_inverse(shift % gl64.P)
-    c = intt(evals, log_m)
-    return gl64.mul(c, tntt._coset_table(log_m, inv_shift, evals.device))
+    return _run(evals, log_m, 1 << log_m, reverse=True,
+                scale=_table("oscale", _out_scale, log_m, shift % gl64.P,
+                             device=evals.device))

@@ -6,11 +6,11 @@
 // 2^64 = 2^32 - 1 and 2^96 = -1 (mod p).
 //
 // Two kinds of step. The canonical ones (gl_add, gl_sub, gl_mul, gl_pow)
-// take values < p and return a value < p; the NTT kernels use them. The lazy
-// ones (*_lazy; the Poseidon core) take any u64 and return some
-// u64 congruent mod p, which may be >= p: the core carries such values
-// between rounds and canonicalises once, at the end, as the reference's TPU
-// kernel does.
+// take values < p and return a value < p. The lazy ones (*_lazy) take any
+// u64 (gl_add_lazy and gl_sub_lazy: a second operand < p) and return some
+// u64 congruent mod p, which may be >= p: the Poseidon core carries such
+// values between rounds and the NTT kernels between passes, and each
+// canonicalises once, at the end, as the reference's TPU kernel does.
 //
 // The lazy steps are PTX carry chains on 32-bit words: the Poseidon core's
 // time follows its instruction count, and a carry flag replaces the compare
@@ -56,6 +56,25 @@ __device__ __forceinline__ uint64_t gl_add_lazy(uint64_t a, uint64_t c) {
 
 __device__ __forceinline__ uint64_t gl_add(uint64_t a, uint64_t b) {
   return gl_canonicalize(gl_add_lazy(a, b));
+}
+
+// a - c for any u64 a and c < p, as some u64. A borrow means a < c, so
+// d = a - c + 2^64 >= 2^64 - p + 1 = EPS + 1, and d - EPS (2^64 = EPS mod p
+// taken back) does not wrap; k = -borrow is EPS or 0 as a 32-bit word.
+__device__ __forceinline__ uint64_t gl_sub_lazy(uint64_t a, uint64_t c) {
+  uint64_t r;
+  asm("{\n\t"
+      ".reg .u32 d0, d1, k;\n\t"
+      "sub.cc.u32 d0, %1, %3;\n\t"
+      "subc.cc.u32 d1, %2, %4;\n\t"
+      "subc.u32 k, 0, 0;\n\t"
+      "sub.cc.u32 d0, d0, k;\n\t"
+      "subc.u32 d1, d1, 0;\n\t"
+      "mov.b64 %0, {d0, d1};\n\t"
+      "}"
+      : "=l"(r)
+      : "r"(gl_lo(a)), "r"(gl_hi(a)), "r"(gl_lo(c)), "r"(gl_hi(c)));
+  return r;
 }
 
 __device__ __forceinline__ uint64_t gl_sub(uint64_t a, uint64_t b) {
@@ -152,6 +171,21 @@ __device__ __forceinline__ uint64_t gl_mul_lazy(uint64_t a, uint64_t b) {
   uint32_t r0, r1, r2, r3;
   gl_mul_words(a, b, r0, r1, r2, r3);
   return gl_reduce_words(r0, r1, r2, r3);
+}
+
+// x * 2^e for any u64 x and 0 < e < 64, as some u64: the 128-bit product
+// is x's words shifted, so one reduction replaces the four products of
+// gl_mul_words. The NTT's radix-16 twiddles are such powers (w_16 = 2^156
+// and 2^96 = -1 mod p); e must be a constant for the shifts to fold.
+__device__ __forceinline__ uint64_t gl_mul_pow2_lazy(uint64_t x, int e) {
+  const uint64_t lo = x << e, hi = x >> (64 - e);
+  return gl_reduce_words(gl_lo(lo), gl_hi(lo), gl_lo(hi), gl_hi(hi));
+}
+
+// 2^e mod p for 0 <= e < 96, canonical: 2^e itself below 2^64, and
+// 2^(e-64) (2^32 - 1) = 2^(e-32) - 2^(e-64) < 2^63 above (2^64 = EPS).
+__host__ __device__ constexpr uint64_t gl_pow2_const(int e) {
+  return e < 64 ? 1ULL << e : (1ULL << (e - 32)) - (1ULL << (e - 64));
 }
 
 __device__ __forceinline__ uint64_t gl_mul(uint64_t a, uint64_t b) {

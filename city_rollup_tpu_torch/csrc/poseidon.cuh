@@ -8,7 +8,7 @@
 // Issue sets the pace: on this card a chain of one instruction kind issues
 // about half a warp instruction a clock per scheduler, kinds on different
 // pipes together up to one, and an all-integer core ran at half the
-// dispatch peak while the FP64 pipe stayed idle (poseidon_core_report.py
+// dispatch peak while the FP64 pipe stayed idle (kernel_report.py
 // --pipes). So the S-boxes' 64x64 products stay integer, with few
 // instructions (PTX carry chains, gl64.cuh), and the MDS moves to the FP64
 // pipe. The reference does its MDS on the TPU's MXU as a bf16

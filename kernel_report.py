@@ -1,32 +1,44 @@
 #!/usr/bin/env python3
-"""What the Poseidon core costs on one GPU: registers, SASS, time.
+"""What a family of the port's kernels costs on one GPU: registers, SASS,
+time.
 
-    python3 poseidon_core_report.py [--out DIR] TREE [TREE ...]
+    python3 kernel_report.py [--lib poseidon|ntt] [--pipes] [--out DIR]
+                             TREE [TREE ...]
 
 Each TREE is a directory holding a copy of this repository (for example a
 `git archive` of a commit, unpacked). For each TREE in the order given, in a
 process of its own, it:
-  1. builds that tree's city_rollup_tpu_torch/csrc/poseidon.cu (its own
+  1. builds that tree's city_rollup_tpu_torch/csrc/<lib>.cu (its own
      _build.py: nvcc -Xptxas -v) and keeps each kernel's registers and
      spills (read by this checkout's _build.ptxas_usage);
   2. disassembles the library (cuobjdump -sass) and counts, per kernel, the
      SASS instructions, the loops (backward branches) and their bodies by
-     opcode; for permute_kernel (one permutation a thread) it estimates the
+     opcode. For permute_kernel (one permutation a thread) it estimates the
      instructions of one permutation as the code outside the loops plus each
-     loop body times its trips (4 full rounds, 22 partial, 4 full);
-  3. times, with CUDA events, K3 permute_t at (12, 2^17), K4 sponge_t at
-     (64, 2^23), K4 reduce_level_t at (4, 2^23) (the one-shot commit's first
-     tree level) and K5 absorb_t at (12, 2^23) + (8, 2^23), on inputs made
-     from one seed, while nvidia-smi samples the SM clock; and
+     loop body times its trips (4 full rounds, 22 partial, 4 full); for the
+     NTT block kernels, the instructions a value costs in a middle
+     radix-16 pass (middle_pass_sass);
+  3. checks the family's kernels against their plain versions at a small
+     shape, then times its entries with CUDA events on inputs made from one
+     seed, while nvidia-smi samples the SM clock:
+     - poseidon (default): K3 permute_t at (12, 2^17), K4 sponge_t at
+       (64, 2^23), K4 reduce_level_t at (4, 2^23) (the one-shot commit's
+       first tree level) and K5 absorb_t at (12, 2^23) + (8, 2^23);
+     - ntt: the public ntt.coset_lde at the commits' shapes, one streamed
+       slab (8, 2^22) -> (8, 2^25) and the one-shot input (64, 2^20) ->
+       (64, 2^23), beside the byte bound of a two-pass LDE (the
+       coefficients read once, one intermediate written and read once,
+       the LDE written once);
   4. hashes each output (sha256 of its bytes).
-Trees of the same code must give the same hashes; the script fails if two
-trees disagree, or if a kernel disagrees with its plain version at a small
-shape. The achieved instruction rate is the estimate of step 2 times the
-permutations a second, against the dispatch peak of 132 SMs x 4 schedulers
-x 32 lanes x the sampled SM clock. The SASS and the compiler logs go to DIR
-(default profile_out/), with every number in poseidon_core_report.json;
-the last line is one JSON object of the main numbers of all trees.
-Run in turns (old new new old) to compare two versions on one card.
+Trees of the same function must give the same hashes; the script fails if
+two trees disagree, or if a kernel disagrees with its plain version. For
+the Poseidon core, the achieved instruction rate is the estimate of step 2
+times the permutations a second, against the dispatch peak of 132 SMs x 4
+schedulers x 32 lanes x the sampled SM clock. The SASS and the compiler
+logs go to DIR (default profile_out/), with every number in
+kernel_report_<lib>.json; the last line is one JSON object of the main
+numbers of all trees. Run in turns (old new new old) to compare two
+versions on one card.
 """
 
 from __future__ import annotations
@@ -46,6 +58,8 @@ from pathlib import Path
 P = 0xFFFF_FFFF_0000_0001
 SMS, SCHEDULERS, LANES = 132, 4, 32
 TRIPS = (4, 22, 4)          # permute_kernel's three round loops, in order
+MEM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+RATE_BITS = 3
 
 
 def _cuobjdump() -> str:
@@ -290,44 +304,35 @@ def pipe_probe(out_dir: Path) -> list:
     return results
 
 
-def one_tree(tree: Path, label: str, out_dir: Path) -> dict:
-    import numpy as np
+def middle_pass_sass(instrs) -> float | None:
+    """SASS instructions a value costs in a middle radix-16 pass of an NTT
+    block kernel, from its static code: the loop whose body stores 16
+    values to shared memory is one thread's radix-16 group (every pass's
+    code, each taken or not); its path from the loop's start to the last of
+    those stores (the group's set-up, 16 loads, the DFT in registers, the
+    twiddles between passes, the stores) over 16 values. An estimate: the
+    loads of a first pass that sit inside that stretch are counted too."""
+    real = [x for x in instrs if x[1] != "NOP"]
+    best = None
+    for addr, op, body in real:
+        if not op.startswith("BRA"):
+            continue
+        m = re.findall(r"0x([0-9a-f]+)", body)
+        if not m or int(m[-1], 16) >= addr:
+            continue
+        loop = [x for x in real if int(m[-1], 16) <= x[0] <= addr]
+        sts = [i for i, x in enumerate(loop) if x[1].startswith("STS")]
+        if len(sts) == 16:
+            best = (sts[-1] + 1) / 16
+    return best
+
+
+def _poseidon_runs(rand, with_edges, res):
+    """Checks of K3, K4 and K5 against their plain versions, then the
+    timed runs: (name, shape, permutations, make inputs, fn, reps)."""
     import torch
-    sys.path.insert(0, str(tree))
-    from city_rollup_tpu_torch import _build, convert
     from city_rollup_tpu_torch.core import cuda_poseidon as cp
-
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    res: dict = {"label": label, "tree": str(tree)}
-    lib = _build.library_path("poseidon")
-    if lib.exists():
-        lib.unlink()
-    t0 = time.perf_counter()
-    log = _build.build(("poseidon",))["poseidon"]
-    res["build_s"] = time.perf_counter() - t0
-    (out_dir / f"ptxas_{label}.txt").write_text(log)
-    res["ptxas_log"] = log
-    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    (out_dir / f"sass_{label}.txt").write_text(sass)
-    res["sass"] = {k: sass_summary(v) for k, v in parse_sass(sass).items()}
-
-    rng = np.random.default_rng(0)
-
-    def rand(shape):
-        return convert.from_u64(
-            rng.integers(0, P, size=shape, dtype=np.uint64), dev)
-
-    edge = [0, 1, P - 1, (1 << 32) - 1, 1 << 32, (1 << 32) + 1, 1 << 63]
-
-    def with_edges(x):
-        for j, v in enumerate(edge):
-            x[:, j] = v - (1 << 64) if v >= 1 << 63 else v
-        return x
-
-    # small-shape checks against the plain versions
+    label = res["label"]
     checks = [
         ("permute", lambda x: cp.permute_t(x), cp.permute_t_plain,
          (12, 1 << 12)),
@@ -345,6 +350,91 @@ def one_tree(tree: Path, label: str, out_dir: Path) -> dict:
     if not torch.equal(cp.absorb_t(s, c), cp.absorb_t_plain(s, c)):
         raise AssertionError(f"{label}: absorb disagrees with its plain "
                              "version")
+    return [
+        ("poseidon_permute", "(12, 2^17)", 1 << 17,
+         lambda: [rand((12, 1 << 17))], cp.permute_t, 500),
+        ("poseidon_sponge", "(64, 2^23)", 8 << 23,
+         lambda: [rand((64, 1 << 23))], cp.sponge_t, 5),
+        ("poseidon_sponge level", "(4, 2^23)", 1 << 22,
+         lambda: [rand((4, 1 << 23))], cp.reduce_level_t, 100),
+        ("poseidon_absorb", "(12, 2^23) + (8, 2^23)", 1 << 23,
+         lambda: [rand((12, 1 << 23)), rand((8, 1 << 23))], cp.absorb_t,
+         40)]
+
+
+def _ntt_runs(rand, with_edges, res):
+    """A coset LDE and an ntt against the plain radix-2 transform (of the
+    padded, scaled coefficients), then the timed coset LDEs."""
+    import torch
+    from city_rollup_tpu_torch.core import ntt
+    label = res["label"]
+    c = with_edges(rand((3, 1 << 11)))
+    root = ntt._root_table(11 + RATE_BITS, False, c.device)
+    want = ntt._ntt_core(ntt._coset_scale_pad(c, 11, RATE_BITS, 7), root,
+                         11 + RATE_BITS)
+    if not torch.equal(ntt.coset_lde(c, 11, RATE_BITS), want):
+        raise AssertionError(f"{label}: coset_lde disagrees with the plain "
+                             "radix-2 transform")
+    x = with_edges(rand((3, 1 << 14)))
+    if not torch.equal(ntt.ntt(x, 14), ntt._ntt_core(x, root, 14)):
+        raise AssertionError(f"{label}: ntt disagrees with the plain "
+                             "radix-2 transform")
+    return [
+        (f"coset_lde {what}", f"({b}, 2^{n})", None,
+         lambda b=b, n=n: [rand((b, 1 << n)), n, RATE_BITS],
+         ntt.coset_lde, 5)
+        for what, b, n in [("streamed slab", 8, 22), ("one-shot", 64, 20)]]
+
+
+def _lde_bound_ms(shape: str) -> float:
+    """Byte bound of a coset LDE of (b, 2^n) coefficients at RATE_BITS."""
+    b, n = re.fullmatch(r"\((\d+), 2\^(\d+)\)", shape).groups()
+    b, n = int(b), 1 << int(n)
+    return 8 * b * (n + 3 * (n << RATE_BITS)) / MEM_BYTES_PER_S * 1e3
+
+
+FAMILIES = {"poseidon": _poseidon_runs, "ntt": _ntt_runs}
+
+
+def one_tree(tree: Path, label: str, lib_name: str, out_dir: Path) -> dict:
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(tree))
+    from city_rollup_tpu_torch import _build, convert
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    res: dict = {"label": label, "tree": str(tree), "lib": lib_name}
+    lib = _build.library_path(lib_name)
+    if lib.exists():
+        lib.unlink()
+    t0 = time.perf_counter()
+    log = _build.build((lib_name,))[lib_name]
+    res["build_s"] = time.perf_counter() - t0
+    (out_dir / f"ptxas_{lib_name}_{label}.txt").write_text(log)
+    res["ptxas_log"] = log
+    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    (out_dir / f"sass_{lib_name}_{label}.txt").write_text(sass)
+    res["sass"] = {}
+    for k, v in parse_sass(sass).items():
+        res["sass"][k] = sass_summary(v)
+        if lib_name == "ntt":
+            res["sass"][k]["middle_pass_per_value"] = middle_pass_sass(v)
+
+    rng = np.random.default_rng(0)
+
+    def rand(shape):
+        return convert.from_u64(
+            rng.integers(0, P, size=shape, dtype=np.uint64), dev)
+
+    edge = [0, 1, P - 1, (1 << 32) - 1, 1 << 32, (1 << 32) + 1, 1 << 63]
+
+    def with_edges(x):
+        for j, v in enumerate(edge):
+            x[:, j] = v - (1 << 64) if v >= 1 << 63 else v
+        return x
 
     def ms_of(fn, reps):
         fn()
@@ -359,16 +449,7 @@ def one_tree(tree: Path, label: str, out_dir: Path) -> dict:
             torch.cuda.synchronize()
         return start.elapsed_time(end) / reps, clk.busy_clock_mhz()
 
-    runs = [
-        ("poseidon_permute", "(12, 2^17)", 1 << 17,
-         lambda: [rand((12, 1 << 17))], cp.permute_t, 500),
-        ("poseidon_sponge", "(64, 2^23)", 8 << 23,
-         lambda: [rand((64, 1 << 23))], cp.sponge_t, 5),
-        ("poseidon_sponge level", "(4, 2^23)", 1 << 22,
-         lambda: [rand((4, 1 << 23))], cp.reduce_level_t, 100),
-        ("poseidon_absorb", "(12, 2^23) + (8, 2^23)", 1 << 23,
-         lambda: [rand((12, 1 << 23)), rand((8, 1 << 23))], cp.absorb_t,
-         40)]
+    runs = FAMILIES[lib_name](rand, with_edges, res)
     per_perm = next((v.get("per_permutation") for k, v in res["sass"].items()
                      if "permute_kernel" in k), None)
     res["times"] = {}
@@ -378,10 +459,15 @@ def one_tree(tree: Path, label: str, out_dir: Path) -> dict:
         digest = hashlib.sha256(
             out.cpu().numpy().tobytes()).hexdigest()[:16]
         del out
+        torch.cuda.empty_cache()
         ms, mhz = ms_of(lambda: fn(*args), reps)
         entry = {"shape": shape, "ms": ms, "sm_clock_mhz": mhz,
-                 "permutations_per_s": perms / ms * 1e3, "digest": digest}
-        if per_perm and mhz:
+                 "digest": digest}
+        if perms is None:
+            entry["bound_ms"] = _lde_bound_ms(shape)
+        else:
+            entry["permutations_per_s"] = perms / ms * 1e3
+        if perms and per_perm and mhz:
             rate = per_perm * perms / ms * 1e3
             peak = SMS * SCHEDULERS * LANES * mhz * 1e6
             entry["instructions_per_s"] = rate
@@ -396,6 +482,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--out", default="profile_out")
+    ap.add_argument("--lib", choices=sorted(FAMILIES), default="poseidon")
     ap.add_argument("--pipes", action="store_true",
                     help="also run the pipe probe first")
     ap.add_argument("--one", help=argparse.SUPPRESS)
@@ -406,11 +493,10 @@ def main() -> int:
     if args.one:
         import torch
         if not torch.cuda.is_available():
-            print("poseidon_core_report: CUDA is not available",
-                  file=sys.stderr)
+            print("kernel_report: CUDA is not available", file=sys.stderr)
             return 1
         print(json.dumps(one_tree(Path(args.one).resolve(), args.label,
-                                  out_dir)), flush=True)
+                                  args.lib, out_dir)), flush=True)
         return 0
     if not args.trees and not args.pipes:
         ap.error("give at least one TREE, or --pipes")
@@ -428,7 +514,8 @@ def main() -> int:
         label = f"{i}-{Path(tree).name}"
         proc = subprocess.run(
             [sys.executable, __file__, "--one", tree, "--label", label,
-             "--out", str(out_dir)], capture_output=True, text=True,
+             "--lib", args.lib, "--out", str(out_dir)], capture_output=True,
+            text=True,
             timeout=1800)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
@@ -439,22 +526,29 @@ def main() -> int:
                        for k, v in res["sass"].items()}
         results.append(res)
         perm = res["sass"].get("permute_kernel", {})
-        print(f"{label}: per-permutation SASS {perm.get('per_permutation')}"
-              f", static {perm.get('static', {}).get('total')}", flush=True)
+        print(f"{label}: build {res['build_s']:.1f} s; per-permutation SASS "
+              f"{perm.get('per_permutation')}, static "
+              f"{perm.get('static', {}).get('total')}", flush=True)
         for k, v in res["ptxas"].items():
-            print(f"  {k}: {v}", flush=True)
+            sm = res["sass"].get(k, {})
+            print(f"  {k}: {v}, SASS {sm.get('static', {}).get('total')}"
+                  + (f", a value in a middle radix-16 pass "
+                     f"~{sm['middle_pass_per_value']}"
+                     if sm.get("middle_pass_per_value") else ""),
+                  flush=True)
         for k, v in res["times"].items():
             share = v.get("share_of_dispatch_peak")
             print(f"  {k} {v['shape']}: {v['ms']:.4f} ms at "
                   f"{v['sm_clock_mhz']} MHz"
-                  + (f", {share:.3f} of dispatch peak" if share else ""),
-                  flush=True)
+                  + (f", {share:.3f} of dispatch peak" if share else "")
+                  + (f", byte bound {v['bound_ms']:.4f} ms"
+                     if "bound_ms" in v else ""), flush=True)
     for name in (results[0]["times"] if results else ()):
         digests = {r["times"][name]["digest"] for r in results}
         if len(digests) != 1:
             raise SystemExit(f"{name}: trees disagree on the output")
     print(card, flush=True)
-    (out_dir / "poseidon_core_report.json").write_text(
+    (out_dir / f"kernel_report_{args.lib}.json").write_text(
         json.dumps({"card": card, "pipes": probe, "trees": results},
                    indent=1))
     print(json.dumps({"card": card, "trees": [{

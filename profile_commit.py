@@ -9,8 +9,10 @@ codeword of a random degree < 2^20 pair (log_m 23), of the PyTorch/CUDA port
 once each to warm up, then once each under torch.profiler. For each run it
 prints the wall time, the summed device time of its kernels (one stream, so
 the kernels do not overlap), the device's idle share, and the kernels by
-device time, and writes the Chrome trace to DIR (default profile_out/). The
-last line is one JSON object with the same numbers. It fails without CUDA.
+device time, then every device kernel that is not one of the port's own
+(csrc/) by name: the torch ops left around the kernels. It writes the
+Chrome trace to DIR (default profile_out/). The last line is one JSON
+object with the same numbers. It fails without CUDA.
 """
 
 from __future__ import annotations
@@ -38,6 +40,11 @@ def _device_us(evt) -> float:
 
 def _is_kernel(evt) -> bool:
     return getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
+
+
+# The port's own kernels (csrc/); every other device kernel is a torch op.
+PORT_KERNELS = ("ntt_block_kernel", "ntt_tail_kernel", "sponge_kernel",
+                "absorb_kernel", "merkle_level_kernel", "permute_kernel")
 
 
 def fri_phases(run) -> dict:
@@ -161,9 +168,22 @@ def main() -> int:
         for key, count, ms in kernels[:15]:
             print(f"  {ms:10.3f} ms {ms / busy_ms:7.2%} x{count:<5} "
                   f"{key[:100]}", flush=True)
+        # every device kernel that is not the port's own: what the NTT and
+        # the hashes still leave to torch (gathers, copies, limb ops)
+        torch_ops = [k for k in kernels
+                     if not any(p in k[0] for p in PORT_KERNELS)]
+        torch_ms = sum(k[2] for k in torch_ops)
+        print(f"  torch ops: {len(torch_ops)} kinds, "
+              f"{sum(k[1] for k in torch_ops)} launches, {torch_ms:.3f} ms",
+              flush=True)
+        for key, count, ms in torch_ops:
+            print(f"    {ms:10.3f} ms x{count:<5} {key[:100]}", flush=True)
         results[name] = {
             "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "copy_ms": copy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "torch_ops_ms": torch_ms,
+            "torch_ops": [{"name": k[:100], "count": c, "ms": ms}
+                          for k, c, ms in torch_ops],
             "kernels": [{"name": k[:100], "count": c, "ms": ms}
                         for k, c, ms in kernels[:15]]}
         if phases:

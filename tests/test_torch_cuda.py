@@ -40,29 +40,41 @@ def _rand(shape, seed):
 
 
 def _cols(n, b, seed):
-    """(n, b) uint64: random columns, then edge-valued columns and rows."""
+    """(n, b) uint64: random columns, then edge-valued columns and rows
+    (as many as fit)."""
     x = _rand((n, b), seed)
-    for j, v in enumerate(EDGE):
+    for j, v in enumerate(EDGE[:b]):
         x[:, j] = v
         if j < n:
             x[j, len(EDGE):len(EDGE) + 8] = v
     return x
 
 
-@pytest.mark.parametrize("ks,rows", [(3, 5), (11, 64), (12, 16)])
-def test_block_kernels_match_plain(cuda, ks, rows):
-    x = convert.from_u64(_cols(rows, 1 << ks, seed=ks), cuda)
-    g = convert.from_u64(_rand((rows,), seed=ks + 1), cuda)
-    tw = cn._stage_table(ks, False, cuda)
-    for seeds in (g, None):
-        got = cn._block_stages(x, tw, seeds, ks)
+@pytest.mark.parametrize("log_n,batch,log_in", [(6, 5, 6), (22, 2, 19),
+                                                (25, 1, 22), (5, 3, 2)])
+def test_block_kernels_match_plain(cuda, log_n, batch, log_in):
+    """K1 (with and without the coset's pre-scaling, its input the first
+    2^log_in values of each row) and K2 (forward, and inverse with its
+    output scaling) against their plain versions, with edge values."""
+    log_n2 = cn._split(log_n)
+    x = convert.from_u64(_cols(batch, 1 << log_in, seed=log_n), cuda)
+    pre = tn._coset_table(log_in, 7, cuda)
+    for p in (pre, None):
+        got = cn._k1(x, log_n, log_n2, p)
         torch.cuda.synchronize()
-        assert torch.equal(got, cn._block_stages_plain(x, tw, seeds, ks))
+        assert torch.equal(got, cn._k1_plain(x, log_n, log_n2, p))
+    y = convert.from_u64(_cols(batch, 1 << log_n, seed=log_n + 1), cuda)
+    scale = cn._table("oscale", cn._out_scale, log_n, 7, device=cuda)
+    for reverse, sc in ((False, None), (True, scale)):
+        got = cn._k2(y, log_n, log_n2, 0, reverse, sc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cn._k2_plain(y, log_n, log_n2, 0, reverse,
+                                             sc))
 
 
 def test_tail_kernel_matches_plain(cuda):
     x = convert.from_u64(_rand((6, 1 << 13), seed=5), cuda)
-    tt = cn._stage_table(13, False, cuda)
+    tt = cn._stage_table(13, cuda)
     for s in (0, 12):
         got = cn._tail_stage(x, s, 13, tt)
         torch.cuda.synchronize()
@@ -76,7 +88,14 @@ def test_fourstep_kernels_match_radix2(cuda, monkeypatch):
     assert torch.equal(tn.ntt(x, 14), want)
     np.testing.assert_array_equal(convert.to_u64(tn.intt(want, 14)), vals)
     monkeypatch.setattr(cn, "MAX_KERNEL_LOG", 5)     # 4 tail stages
+    before = cn.LAUNCHES["ntt_tail_stage"]
     assert torch.equal(tn.ntt(x, 14), want)
+    assert cn.LAUNCHES["ntt_tail_stage"] == before + 4
+    c = convert.from_u64(_cols(2, 1 << 11, seed=11), cuda)
+    padded = tn._coset_scale_pad(c, 11, 3, 7)
+    assert torch.equal(tn.coset_lde(c, 11, 3),
+                       tn._ntt_core(padded, tn._root_table(14, False, cuda),
+                                    14))
 
 
 @pytest.mark.parametrize("n", [3, 8, 10, 64])

@@ -130,6 +130,80 @@ def mul_lazy(a, b):
     return reduce_words(*mul_words(a, b))
 
 
+def sub_lazy(a, c):
+    """gl_sub_lazy: a - c for any u64 a and c < p."""
+    assert c < P
+    a0, a1 = _words(a)
+    c0, c1 = _words(c)
+    d0, bf = _sub_cc(a0, c0)
+    d1, bf = _sub_cc(a1, c1, bf)
+    k = (-bf) & M32                         # subc.u32 k, 0, 0
+    if bf:
+        assert (d0 | (d1 << 32)) > EPS      # d - EPS does not wrap
+    d0, bf = _sub_cc(d0, k)
+    d1, bf = _sub_cc(d1, 0, bf)
+    assert bf == 0
+    return d0 | (d1 << 32)
+
+
+def mul_pow2_lazy(x, e):
+    """gl_mul_pow2_lazy: x * 2^e for 0 < e < 64, the shifted words of x
+    reduced once."""
+    assert 0 < e < 64
+    lo, hi = (x << e) & M64, x >> (64 - e)
+    return reduce_words(*_words(lo), *_words(hi))
+
+
+def pow2_const(e):
+    """gl_pow2_const: 2^e mod p for 0 <= e < 96."""
+    return (1 << e) if e < 64 else (1 << (e - 32)) - (1 << (e - 64))
+
+
+# --- ntt.cu ------------------------------------------------------------------
+
+W16_LOG2 = 156
+
+
+def butterfly(a, b, e, shift=True, lazy=True):
+    """ntt.cu's butterfly: (a + w b, a - w b) for w = 2^e mod p; 2^96 = -1
+    swaps the outputs. a and b any u64 when lazy, canonical otherwise."""
+    e %= 192
+    neg, f = e >= 96, e % 96
+    if f == 0:
+        t = b
+    elif shift and f < 64:
+        t = mul_pow2_lazy(b, f)
+    else:
+        t = mul_lazy(b, pow2_const(f))
+    t = canonicalize(t)
+    if lazy:
+        s, d = add_lazy(a, t), sub_lazy(a, t)
+    else:
+        assert a < P
+        s, d = canonicalize(add_lazy(a, t)), (a - t) % (1 << 64)
+        if a < t:
+            d -= EPS
+    return (d, s) if neg else (s, d)
+
+
+def _brev(x, bits):
+    return int(format(x, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def dft_regs(v, rl, **kw):
+    """ntt.cu's dft_regs: radix-2 DIT over the bit-reversed view of v, the
+    twiddles of stage s powers of w_16 = 2^156; X[k] is left in v[brev(k)]."""
+    v = list(v)
+    for s in range(rl):
+        h = 1 << s
+        for i in range((1 << rl) // 2):
+            j = i & (h - 1)
+            i0 = ((i >> s) << (s + 1)) | j
+            a, b = _brev(i0, rl), _brev(i0 + h, rl)
+            v[a], v[b] = butterfly(v[a], v[b], W16_LOG2 * j * (8 >> s), **kw)
+    return [v[_brev(k, rl)] for k in range(1 << rl)]
+
+
 # --- poseidon.cuh -----------------------------------------------------------
 
 W = params.WIDTH
@@ -279,3 +353,95 @@ def test_lazy_permutation_matches_reference(kind):
                   for _ in range(6)]
     for s in states:
         assert permute(s) == ref_host.permute(s)
+
+
+def test_sub_lazy_on_edge_pairs():
+    for a, c in itertools.product(ANY, CANONICAL):
+        assert _u64(sub_lazy(a, c)) % P == (a - c) % P
+
+
+def test_mul_pow2_lazy_on_edge_values():
+    for x, e in itertools.product(ANY, range(1, 64)):
+        assert _u64(mul_pow2_lazy(x, e)) % P == (x << e) % P
+    for e in range(96):
+        assert pow2_const(e) == pow(2, e, P) and pow2_const(e) < P
+
+
+def test_w16_is_a_power_of_two():
+    """Every 16th root of unity of the reference is a power of 2."""
+    from city_rollup_tpu.core import gl64 as jg
+    assert pow(2, W16_LOG2, P) == jg.h_primitive_root_of_unity(4)
+    assert pow(2, 96, P) == P - 1
+
+
+@pytest.mark.parametrize("shift,lazy", [(True, True), (False, True),
+                                        (True, False)])
+def test_butterfly_on_edge_pairs(shift, lazy):
+    """Every twiddle exponent a radix-16 DFT uses, on every pair of edge
+    values (any u64 for the lazy butterfly, canonical otherwise)."""
+    vals = ANY if lazy else CANONICAL
+    exps = {(W16_LOG2 * j * (8 >> s)) % 192 for s in range(4)
+            for j in range(1 << s)}
+    for e in exps:
+        w = pow(2, e, P)
+        for a, b in itertools.product(vals, vals):
+            s_, d = butterfly(a, b, e, shift=shift, lazy=lazy)
+            assert _u64(s_) % P == (a + w * b) % P
+            assert _u64(d) % P == (a - w * b) % P
+            if not lazy:
+                assert s_ < P and d < P
+
+
+@pytest.mark.parametrize("rl", [1, 2, 3, 4])
+def test_dft_regs_is_the_dft(rl):
+    """The in-register radix-2^rl DFT equals sum_a x[a] w^(a k), w the
+    reference's 2^rl-th root, on edge and random lazy inputs."""
+    from city_rollup_tpu.core import gl64 as jg
+    r = 1 << rl
+    w = jg.h_primitive_root_of_unity(rl)
+    rng = np.random.default_rng(rl)
+    inputs = [[EDGE[(i + k) % len(EDGE)] for i in range(r)]
+              for k in range(len(EDGE))]
+    inputs += [[int(v) for v in rng.integers(0, 1 << 64, size=r,
+                                             dtype=np.uint64)]
+               for _ in range(8)]
+    for x in inputs:
+        got = dft_regs(x, rl)
+        want = [sum(x[a] * pow(w, a * k, P) for a in range(r)) % P
+                for k in range(r)]
+        assert [_u64(g) % P for g in got] == want
+
+
+def _mutant(fn, mutate):
+    """Run fn with one helper of this model replaced."""
+    saved = {k: globals()[k] for k in mutate}
+    globals().update(mutate)
+    try:
+        return fn()
+    except AssertionError:
+        return "assertion"
+    finally:
+        globals().update(saved)
+
+
+@pytest.mark.parametrize("name", ["no_borrow_fix", "dropped_hi_word",
+                                  "unswapped_sign"])
+def test_ntt_model_mutations_fail(name):
+    """A mutated model (a dropped borrow correction, a dropped high word of
+    the shifted product, a sign of 2^96 ignored) fails the checks above."""
+    def no_borrow_fix(a, c):
+        return (a - c) % (1 << 64)
+
+    def dropped_hi_word(x, e):
+        lo = (x << e) & M64
+        return reduce_words(*_words(lo), 0, 0)
+
+    def unswapped_sign(a, b, e, shift=True, lazy=True):
+        t = canonicalize(mul_lazy(b, pow(2, e % 96, P)))
+        return add_lazy(a, t), sub_lazy(a, t)
+
+    mutate = {"no_borrow_fix": {"sub_lazy": no_borrow_fix},
+              "dropped_hi_word": {"mul_pow2_lazy": dropped_hi_word},
+              "unswapped_sign": {"butterfly": unswapped_sign}}[name]
+    outcome = _mutant(lambda: test_dft_regs_is_the_dft(4), mutate)
+    assert outcome == "assertion"

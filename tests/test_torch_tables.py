@@ -10,6 +10,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from city_rollup_tpu.core import gl64 as jg
 from city_rollup_tpu.core import ntt as jntt
 from city_rollup_tpu.core import pallas_ntt as pn
 from city_rollup_tpu.core import poseidon_host as j_host
@@ -100,10 +101,28 @@ def test_stage_twiddle_cols(log_m, inverse):
                                   pn._stage_twiddle_cols(log_m, inverse))
 
 
-@pytest.mark.parametrize("args", [(10, 5, 3, 128, False), (9, 4, 2, 64, True),
-                                  (23, 11, 2, 8192, False)])
-def test_gcol(args):
-    np.testing.assert_array_equal(cn._gcol(*args), pn._gcol(*args))
+@pytest.mark.parametrize("log_n", [1, 9, 23])
+def test_fourstep_twiddle_table(log_n):
+    """K1's two-level w_N table gives the reference's four-step seeds
+    (w_N^c, pallas_ntt._gcol) and their powers w_N^(c k2)."""
+    log_n2 = cn._split(log_n)
+    n1 = 1 << (log_n - log_n2)
+    tw = cn._tw_cols(log_n).astype(object)
+    h = cn._tw_split(log_n)
+
+    def w_pow(e):
+        return tw[e & ((1 << h) - 1)] * tw[(1 << h) + (e >> h)] % jg.P
+
+    seeds = pn._gcol(log_n, log_n2, 1, n1, False)
+    picks = np.random.default_rng(log_n).integers(0, n1, size=64)
+    for c in sorted(set(picks.tolist()) | {0, n1 - 1}):
+        assert w_pow(c) == int(seeds[c])
+        k2 = (1 << log_n2) - 1
+        assert w_pow(c * k2) == pow(int(seeds[c]), k2, jg.P)
+    np.testing.assert_array_equal(
+        cn._pow_cols(min(log_n, 12)),
+        jg.np_powers(jg.h_primitive_root_of_unity(min(log_n, 12)),
+                     1 << min(log_n, 12)))
 
 
 @pytest.mark.parametrize("log_n", [0, 3, 11])
@@ -162,3 +181,32 @@ def test_port_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_c_signatures_match_sources():
+    """Each C entry's ctypes argtypes (_build.SIGNATURES) follow its
+    parameters in csrc/: a pointer per pointer, c_longlong per long long,
+    c_int per int."""
+    import ctypes
+    from city_rollup_tpu_torch import _build
+    kinds = {ctypes.c_void_p: "ptr", ctypes.c_longlong: "long long",
+             ctypes.c_int: "int"}
+    for lib, fns in _build.SIGNATURES.items():
+        source = (PORT / "csrc" / f"{lib}.cu").read_text()
+        for fn, argtypes in fns.items():
+            m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", source)
+            assert m, fn
+            params = [" ".join(p.split()) for p in m.group(1).split(",")]
+            want = ["ptr" if "*" in p else
+                    "long long" if p.startswith("long long") else "int"
+                    for p in params]
+            assert [kinds[t] for t in argtypes] == want, fn
+
+
+def test_w16_constant_matches_source():
+    """csrc/ntt.cu's radix-16 twiddles assume w_16 = 2^kW16Log2: the same
+    exponent as the wrapper's, and the reference's 16th root."""
+    m = re.search(r"constexpr int kW16Log2 = (\d+);",
+                  (PORT / "csrc" / "ntt.cu").read_text())
+    assert int(m.group(1)) == cn.W16_LOG2
+    assert pow(2, cn.W16_LOG2, jg.P) == jg.h_primitive_root_of_unity(4)
