@@ -9,12 +9,15 @@ In order, it:
      process per source, all started together) and prints each kernel's
      registers and spills (-Xptxas -v) as one JSON line;
   3. holds each kernel bit for bit against its plain PyTorch version on the
-     card, at the shapes the commit and FRI paths give it and at edge
-     values: K1 and K2 at log_m 14, 23 (batch 1, and the one-shot commit's
-     64) and 25 (one streamed slab of 8) as coset LDEs, 8 (batch 1 and 8)
-     and 5 (inverse, with the output scaling); the tail kernel, off
-     those paths, directly and through a transform with MAX_KERNEL_LOG
-     lowered; K4's Merkle-level entry (reduce_level_t) included;
+     card, at the shapes the commit, FRI and prove paths give it and at
+     edge values: K1 and K2 at log_m 14, 23 (batch 1, and the one-shot
+     commit's 64) and 25 (one streamed slab of 8) as coset LDEs, 8 (batch
+     1 and 8) and 5 (inverse, with the output scaling), and the prover's
+     intt of (8 x 144, 2^12), coset LDE 2^12 -> 2^15 and quotient
+     coset_intt of (8 x 2, 2^15); the tail kernel, off those paths,
+     directly and through a transform with MAX_KERNEL_LOG lowered; K4 at
+     the prover's leaf widths (a partial last sponge chunk) and its
+     Merkle-level entry (reduce_level_t);
   4. holds the 2^10 x 16 seed-7 cap against GOLDEN_CAP, the reference
      package's output for the same input (pinned by
      tests/test_torch_pipeline.py), and the small seed-7 FRI proof against
@@ -29,11 +32,21 @@ In order, it:
      batch proof 0 == fri_prove of codeword 0 alone, and has the host
      fri_verify accept the full-width and one batch proof and reject the
      full-width proof with one final-poly coefficient changed;
-  7. times each kernel, its plain version and its bound, and the whole
+  7. proves, with the snark prover: the tests' tiny circuit against
+     GOLDEN_PROOF (the reference's proof, pinned by
+     tests/test_torch_snark.py), then the prove path once with every launch
+     count set to 0, at the full prover width (CircuitConfig.
+     poseidon_config(), FriConfig() defaults): FULL_PATHS Merkle-path
+     membership checks of height 32 filling 2^12 rows, preprocessed, then
+     prove (B = 1) cold and warm and prove_batch of 8 witnesses, with each
+     run's wall time, peak device memory and step times; then has the host
+     verifier accept every proof and reject a tampered one, and holds batch
+     proof 0 == prove of its witness alone;
+  8. times each kernel, its plain version and its bound, and the whole
      coset LDE of one streamed slab and of the one-shot input against its
-     byte bound;
-and prints one JSON line of the LDE times, one of kernels, then as its last
-line
+     byte bound, and K4, K1 and K2 at the prove path's shapes;
+and prints one JSON line of the prove path, one of the LDE and prove-path
+kernel times, one of kernels, then as its last line
 {"ok": true, "device": {...}}. Any failure raises, and the exit code is then
 non-zero. Without CUDA, or without the port's package beside it, it fails
 before printing any result.
@@ -134,6 +147,76 @@ GOLDEN_FRI = {
                             16781506841225234962, 11268056122848166510],
 }
 
+# proof_digest(convert.proof_to_plain(proof)) of the reference package's
+# snark prove of tiny_circuit (x = 3) under fast_config (zk off), built with
+# build() (pinned by tests/test_torch_snark.py).
+GOLDEN_PROOF = [16907637346382866868, 7186342146289174102,
+                1575200190949228284, 10531905707465559276]
+
+# The snark prover's circuits, one builder function each, run against either
+# package's CircuitBuilder. FAST_FRI is tests/test_device_passes.py's small
+# configuration (num_challenges 1); the full width is
+# CircuitConfig.poseidon_config() (144 wires) with FriConfig() defaults.
+FAST_FRI = dict(rate_bits=3, cap_height=1, proof_of_work_bits=4,
+                num_query_rounds=4, final_poly_bits=3)
+# Merkle paths of the state trees' height, and as many of them as fill
+# build(min_log_n=12) (tests/test_torch_snark_circuit.py checks that one
+# more does not fit).
+MERKLE_HEIGHT = 32
+FULL_LOG_N = 12
+FULL_PATHS = 48
+
+
+def fast_config(config_cls, fri_config_cls, zk: bool = False):
+    return config_cls.poseidon_config(num_challenges=1, zk=zk,
+                                      fri=fri_config_cls(**FAST_FRI))
+
+
+def tiny_circuit(b):
+    """y = x * x with y public; returns x."""
+    x = b.add_virtual_target()
+    b.register_public_input(b.mul(x, x))
+    return x
+
+
+def merkle_paths_circuit(b, num_paths: int, height: int = MERKLE_HEIGHT):
+    """num_paths Merkle-path membership checks: per level one conditional
+    swap (4 arithmetic ops a felt pair, the bit constrained to 0/1) and
+    one hash_two_to_one (a Poseidon row). Each path's leaf and computed
+    root are public inputs. Returns per path (leaf, bits, siblings)."""
+    p = P
+    paths = []
+    for _ in range(num_paths):
+        leaf = b.add_virtual_hash()
+        bits = b.add_virtual_targets(height)
+        sibs = [b.add_virtual_hash() for _ in range(height)]
+        cur = leaf
+        for bit, sib in zip(bits, sibs):
+            b.assert_zero(b.arithmetic(1, p - 1, bit, bit, bit))
+            left, right = [], []
+            for c, s in zip(cur, sib):
+                d = b.sub(s, c)
+                left.append(b.mul_add(bit, d, c))         # c + bit (s - c)
+                right.append(b.arithmetic(p - 1, 1, bit, d, s))   # s - bit d
+            cur = b.hash_two_to_one(left, right)
+        b.register_public_inputs(leaf)
+        b.register_public_inputs(cur)
+        paths.append((leaf, bits, sibs))
+    return paths
+
+
+def merkle_paths_witness(b, paths, seed: int):
+    """A partial witness of random leaves, index bits and siblings."""
+    rng = np.random.default_rng(seed)
+    pw = b.partial_witness()
+    for leaf, bits, sibs in paths:
+        for t in leaf + [t for s in sibs for t in s]:
+            pw.set(t, int(rng.integers(0, P, dtype=np.uint64)))
+        for t in bits:
+            pw.set(t, int(rng.integers(0, 2)))
+    return pw
+
+
 # Bounds (H100 SXM datasheet peaks at 700 W): 3.35 TB/s of device
 # memory, and 67e12 operations/s outside the tensor cores (the float32 rate,
 # a multiply-add counted as 2). There is no faster rate for 32-bit integer
@@ -178,6 +261,35 @@ COMMIT_KERNELS = ("ntt_fourstep_tw", "ntt_block", "poseidon_sponge",
                   "poseidon_absorb")
 FRI_KERNELS = ("ntt_fourstep_tw", "ntt_block", "poseidon_permute",
                "poseidon_sponge")
+# The prove path interpolates and extends every committed matrix (K1, K2),
+# hashes its leaves and tree levels (K4) and runs FRI, which grinds (K3).
+PROVE_KERNELS = ("ntt_fourstep_tw", "ntt_block", "poseidon_permute",
+                 "poseidon_sponge")
+# The prove path's batch (one aggregation level's) and the leaf widths its
+# trees hash: wires (144, zk 148), Z and partial products (10, zk 14),
+# quotient chunks (16, zk 20); the constants/sigmas width S is the
+# circuit's.
+PROVE_BATCH = 8
+PROVE_LEAF_WIDTHS = (10, 14, 16, 20, 144, 148)
+
+
+class StepTimer:
+    """prove_batch's on_step: the wall time of each step, the device
+    synchronised at both of its ends."""
+
+    def __init__(self):
+        self.steps = {}
+        self.last = None
+
+    def start(self):
+        torch.cuda.synchronize()
+        self.last = time.perf_counter()
+
+    def __call__(self, name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.steps[name] = self.steps.get(name, 0.0) + now - self.last
+        self.last = now
 
 
 def log(*args):
@@ -260,6 +372,20 @@ def golden_fri_differences(proof) -> list[str]:
     return [k for k, want in GOLDEN_FRI.items() if got[k] != want]
 
 
+def proof_digest(plain) -> list[int]:
+    """poseidon_host.hash_no_pad of a proof's plain form
+    (convert.proof_to_plain), flattened depth first."""
+    from city_rollup_tpu_torch.core import poseidon_host
+
+    def flat(x):
+        if isinstance(x, list):
+            for v in x:
+                yield from flat(v)
+        else:
+            yield x
+    return poseidon_host.hash_no_pad(list(flat(plain)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -276,6 +402,8 @@ def main() -> int:
     from city_rollup_tpu_torch.core import fri
     from city_rollup_tpu_torch.core import ntt as tn
     from city_rollup_tpu_torch.core.challenger import Challenger
+    from city_rollup_tpu_torch.snark import (CircuitBuilder, CircuitConfig,
+                                             prover, verifier)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -316,6 +444,23 @@ def main() -> int:
         return torch.cat([plain(x[i:i + rows], *args)
                           for i in range(0, x.shape[0], rows)])
 
+    # the full-width circuit (host only until its first proof): its
+    # constants/sigmas width S is one of K4's leaf widths below
+    t0 = time.perf_counter()
+    full_b = CircuitBuilder(CircuitConfig.poseidon_config())
+    full_paths = merkle_paths_circuit(full_b, FULL_PATHS)
+    full = full_b.build(min_log_n=FULL_LOG_N)
+    width_s = full.prover.const_sigma_values.shape[0]
+    gate_rows = {}
+    for r in full.prover.rows:
+        if r is not None:
+            gate_rows[r.gate.key] = gate_rows.get(r.gate.key, 0) + 1
+    log(f"phase build full-width circuit {time.perf_counter() - t0:.3f} s: "
+        f"log_n {full.common.log_n}, {FULL_PATHS} paths of height "
+        f"{MERKLE_HEIGHT}, gate rows {json.dumps(gate_rows)}, "
+        f"{sum(gate_rows.values())} of {full.common.n} rows, "
+        f"{full.common.num_public_inputs} public inputs, S = {width_s}")
+
     # --- kernels against their plain versions ------------------------------
     # K1 and K2 at the NTT shapes of the main path: the commits' coset LDEs
     # (log_m 14; 23, batch 1 and the one-shot commit's 64, whose blocks run
@@ -330,7 +475,10 @@ def main() -> int:
             (23, 64, 20, "coset_lde"), (25, 8, 22, "coset_lde"),
             (8, 1, 8, "coset_intt"),
             (8, 8, 8, "coset_intt"), (5, 1, 5, "coset_intt"),
-            (14, 3, 14, "intt")]:
+            (14, 3, 14, "intt"),
+            (12, PROVE_BATCH * 144, 12, "intt"),
+            (15, PROVE_BATCH * 144, 12, "coset_lde"),
+            (15, PROVE_BATCH * 2, 15, "coset_intt")]:
         log_n2 = cn._split(log_m)
         x = with_edges(rand((batch, 1 << log_in)))
         pre = tn._coset_table(log_in, 7, dev) if mode == "coset_lde" \
@@ -380,6 +528,14 @@ def main() -> int:
         x = with_edges(rand((n, 1 << 14)))
         require_equal(cp.sponge_t(x), cp.sponge_t_plain(x),
                       f"poseidon_sponge n={n}")
+    # the prove path's leaf widths, over the leaves of a batch of 8
+    # (2^18) and of the constants/sigmas tree (2^15)
+    for n, cols in [(w, PROVE_BATCH << 15) for w in PROVE_LEAF_WIDTHS] + \
+            [(width_s, 1 << 15)]:
+        x = with_edges(rand((n, cols)))
+        require_equal(cp.sponge_t(x), cp.sponge_t_plain(x),
+                      f"poseidon_sponge n={n} at {cols} leaves")
+    del x
     # K4's Merkle-level entry reads the (4, 2B) children in place: against
     # the plain two_to_one of the strided slices, with edge values and at
     # the one-shot commit's leaf level, and against the sponge entry
@@ -565,6 +721,107 @@ def main() -> int:
         raise AssertionError("fri_verify accepts a tampered final poly")
     log("check fri_verify rejects a changed final-poly coefficient")
     del cw23, cw20, proofs, proof23, batch_proofs, again, single
+    torch.cuda.empty_cache()
+
+    # --- golden snark proof ------------------------------------------------
+    t0 = time.perf_counter()
+    tiny_b = CircuitBuilder(fast_config(CircuitConfig, fri.FriConfig))
+    x_t = tiny_circuit(tiny_b)
+    tiny = tiny_b.build()
+    pw = tiny_b.partial_witness()
+    pw.set(x_t, 3)
+    golden = prover.prove(tiny, pw)
+    if proof_digest(convert.proof_to_plain(golden)) != GOLDEN_PROOF:
+        raise AssertionError("golden snark proof differs from the "
+                             "reference's")
+    if not verifier.verify(golden, tiny.common, tiny.verifier):
+        raise AssertionError("verify rejects the golden snark proof")
+    log(f"check prove of the tiny circuit (log_n {tiny.common.log_n}): "
+        f"equals GOLDEN_PROOF, verifies ({time.perf_counter() - t0:.3f} s)")
+
+    # --- the prove path, once, counted -------------------------------------
+    # partial witnesses (random leaves, index bits and siblings) are made
+    # before the counted run; generating the wire values from them is the
+    # prove's first step. Witness 0 for prove, 1..8 for prove_batch.
+    def witness(seed):
+        return merkle_paths_witness(full_b, full_paths, seed)
+
+    zero_launches()
+    before = all_launches()
+    prove_runs = []
+    t0 = time.perf_counter()
+    full_vd = full.verifier           # the preprocessing: K1, K2, K4
+    torch.cuda.synchronize()
+    log(f"phase preprocess (constants/sigmas LDE + tree, S = {width_s}) "
+        f"{time.perf_counter() - t0:.6f} s")
+    full_proofs = {}
+    for name, pws in [("prove B=1", [witness(0)]),
+                      ("prove B=1 warm", [witness(0)]),
+                      (f"prove_batch B={PROVE_BATCH}",
+                       [witness(s) for s in range(1, PROVE_BATCH + 1)])]:
+        timer = StepTimer()
+        torch.cuda.reset_peak_memory_stats()
+        # what earlier phases left allocated (cached NTT and fold tables)
+        held = torch.cuda.memory_allocated() / 2**30
+        timer.start()
+        t0 = timer.last
+        full_proofs[name] = prover.prove_batch(full, pws, on_step=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        now = all_launches()
+        run = {"name": name, "batch": len(pws), "wall_s": wall,
+               "peak_gib": peak, "held_before_gib": held,
+               "steps_s": timer.steps,
+               "launches": {k: now[k] - before[k] for k in now}}
+        before = now
+        prove_runs.append(run)
+        log(f"phase {name} log_n {full.common.log_n} {wall:.6f} s, peak "
+            f"device memory {peak:.3f} GiB ({held:.3f} GiB held before "
+            f"it); steps "
+            f"{json.dumps({k: round(v, 6) for k, v in timer.steps.items()})}")
+        log(f"launches in {name}: {json.dumps(run['launches'])}")
+    path_launches["prove"] = all_launches()
+    log(f"prove path launches {json.dumps(path_launches['prove'])}")
+    require_launched(path_launches["prove"], PROVE_KERNELS, "prove")
+
+    # outside the counted run: determinism, batch == single, the verifier
+    one, warm = full_proofs["prove B=1"][0], full_proofs["prove B=1 warm"][0]
+    batch_proofs = full_proofs[f"prove_batch B={PROVE_BATCH}"]
+    if convert.proof_to_plain(one) != convert.proof_to_plain(warm):
+        raise AssertionError("prove: second call differs")
+    if len(batch_proofs) != PROVE_BATCH or \
+            len(one.initial_openings) != fri.FriConfig().num_query_rounds:
+        raise AssertionError("proofs of the wrong shape")
+    t0 = time.perf_counter()
+    alone = prover.prove(full, witness(1))
+    log(f"phase prove B=1 of batch witness 0 "
+        f"{time.perf_counter() - t0:.6f} s")
+    if convert.proof_to_plain(alone) != convert.proof_to_plain(
+            batch_proofs[0]):
+        raise AssertionError("prove_batch proof 0 != prove alone")
+    log("check prove_batch proof 0 == prove of its witness alone")
+    verify_s = []
+    for i, proof in enumerate([one] + batch_proofs):
+        t0 = time.perf_counter()
+        ok = verifier.verify(proof, full.common, full_vd)
+        verify_s.append(time.perf_counter() - t0)
+        if not ok:
+            raise AssertionError(f"verify rejects full-width proof {i}")
+    log(f"check verify accepts all {len(verify_s)} full-width proofs "
+        f"({', '.join(f'{t:.3f}' for t in verify_s)} s)")
+    w0 = one.openings.wires[0]
+    one.openings.wires[0] = ((w0[0] + 1) % P, w0[1])
+    if verifier.verify(one, full.common, full_vd):
+        raise AssertionError("verify accepts a tampered opening")
+    log("check verify rejects a changed wire opening")
+    prove_line = {
+        "log_n": full.common.log_n, "paths": FULL_PATHS,
+        "height": MERKLE_HEIGHT, "gate_rows": gate_rows,
+        "public_inputs": full.common.num_public_inputs,
+        "runs": prove_runs, "verify_s": verify_s}
+    del full_proofs, one, warm, batch_proofs, alone
+    torch.cuda.empty_cache()
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in path_launches["commit"]}
 
@@ -687,11 +944,53 @@ def main() -> int:
             20, 8 * (12 + 12) << 17, OPS_PERMUTATION << 17)
     del states
 
+    # K4 at the prove path's leaf widths (the B = 8 batch's 2^18 leaves, the
+    # constants/sigmas tree's 2^15), and K1 + K2 as its intt and coset LDE
+    prove_kernels = []
+    for label, n, cols in [("wires", 144, PROVE_BATCH << 15),
+                           ("Z and partial products", 10,
+                            PROVE_BATCH << 15),
+                           ("quotient", 16, PROVE_BATCH << 15),
+                           ("constants/sigmas", width_s, 1 << 15)]:
+        x = rand((n, cols))
+        perms = -(-n // 8)
+        t_bytes = 8 * (n + 4) * cols / MEM_BYTES_PER_S * 1e3
+        t_ops = perms * OPS_PERMUTATION * cols / OPS_PER_S * 1e3
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cp.sponge_t_plain(x)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        ms = cuda_ms(lambda: cp.sponge_t(x), 20)
+        prove_kernels.append({
+            "name": "poseidon_sponge", "what": f"{label} leaves",
+            "shape": [n, cols], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        log(f"time poseidon_sponge {label} leaves ({n}, {cols}): {ms:.4f} "
+            f"ms, plain {plain_ms:.1f} ms, bound {max(t_bytes, t_ops):.4f} "
+            f"ms")
+    x = rand((PROVE_BATCH * 144, 1 << 12))
+    for label, fn, n_out in [
+            ("intt", lambda: tn.intt(x, 12), 1 << 12),
+            ("coset_lde", lambda: tn.coset_lde(x, 12, RATE_BITS),
+             1 << (12 + RATE_BITS))]:
+        ms = cuda_ms(fn, 20)
+        nb = 8 * x.shape[0] * ((1 << 12) + 2 * n_out + n_out)
+        prove_kernels.append({
+            "name": "ntt_fourstep_tw + ntt_block", "what": label,
+            "shape": [list(x.shape), [x.shape[0], n_out]], "ms": ms,
+            "bound_ms": nb / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+        log(f"time {label} {tuple(x.shape)} -> ({x.shape[0]}, {n_out}): "
+            f"{ms:.4f} ms, byte bound {nb / MEM_BYTES_PER_S * 1e3:.4f} ms")
+    del x
+
     missing = set(launches) - {k["name"] for k in kernels}
     if missing:
         raise AssertionError(f"no timing for {sorted(missing)}")
     log(card)
-    log(json.dumps({"coset_lde": ldes}))
+    log(json.dumps({"prove": prove_line}))
+    log(json.dumps({"coset_lde": ldes, "prove_kernels": prove_kernels}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -261,11 +261,14 @@ def fri_prove_batch(codewords, log_m: int, shift: int, config: FriConfig,
 # ---------------------------------------------------------------------------
 
 def fri_verify(proof: FriProof, log_m: int, shift: int, config: FriConfig,
-               challenger: Challenger) -> bool:
-    """Verify a FriProof as a standalone low-degree test: layer 0's own
-    opening is trusted as the codeword's value at each queried index. A
-    proof must carry config.num_query_rounds query rounds (the reference's
-    fri_verify does not check their number)."""
+               challenger: Challenger, initial_eval_fn=None) -> bool:
+    """Verify a FriProof. ``initial_eval_fn(query_round, index)`` returns
+    the claimed codeword value (an ext (int, int)) at a queried initial
+    index, e.g. recomputed from a PLONK proof's tree openings after their
+    Merkle paths are checked, or None to reject the proof. Without it,
+    layer 0's own opening is trusted as the codeword's value (a standalone
+    low-degree test). A proof must carry config.num_query_rounds query
+    rounds (the reference's fri_verify does not check their number)."""
     log_degree = log_m - config.rate_bits
     n_folds = config.num_folds(log_degree)
     if len(proof.commit_caps) != n_folds or \
@@ -292,11 +295,15 @@ def fri_verify(proof: FriProof, log_m: int, shift: int, config: FriConfig,
     w_fin = gl64.h_primitive_root_of_unity(fin_log)
     inv2 = pow(2, gl64.P - 2, gl64.P)
 
-    for round_layers in proof.query_rounds:
+    for qr, round_layers in enumerate(proof.query_rounds):
         i = challenger.get_challenge() % m0
         if len(round_layers) != n_folds:
             return False
         value = None
+        if initial_eval_fn is not None:
+            value = initial_eval_fn(qr, i)
+            if value is None:
+                return False
         lm, s = log_m, shift % gl64.P
         for layer, beta, cap in zip(round_layers, betas, proof.commit_caps):
             h = 1 << (lm - 1)

@@ -149,6 +149,17 @@ def inverse(a):
     return acc
 
 
+def reduce_add(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum mod p along `dim`, as a tree of elementwise adds (log2 of the
+    length of passes; the sum is exact, so its order does not matter)."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        y = add(x[:h], x[h:2 * h])
+        x = torch.cat([y, x[2 * h:]]) if x.shape[0] % 2 else y
+    return x[0]
+
+
 def eq(a, b):
     return a == b
 

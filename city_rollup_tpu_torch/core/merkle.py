@@ -38,6 +38,22 @@ class BatchedMerkleTree:
     def __init__(self, leaf_data: torch.Tensor, cap_height: int = 0):
         digests = hash_leaves(leaf_data)                 # (B, N, 4)
         bsz, n = digests.shape[0], digests.shape[1]
+        self._build(digests.reshape(bsz * n, 4).T, bsz, cap_height)
+
+    @classmethod
+    def from_polys(cls, polys: torch.Tensor, cap_height: int = 0):
+        """B trees over the columns of (B, k, N) polynomial values (leaf j
+        of tree b is polys[b, :, j]), as a prover's LDEs are laid out: one
+        sponge launch hashes the leaves of all B trees."""
+        bsz, k, n = polys.shape
+        tree = cls.__new__(cls)
+        rows = polys.transpose(0, 1).reshape(k, bsz * n)
+        tree._build(cuda_poseidon.hash_rows_t(rows), bsz, cap_height)
+        return tree
+
+    def _build(self, d_t: torch.Tensor, bsz: int, cap_height: int):
+        """Levels from the (4, B*N) leaf digests, trees laid end to end."""
+        n = d_t.shape[1] // bsz
         if n & (n - 1) or n == 0:
             raise ValueError("leaf count must be a power of two")
         if (1 << cap_height) > n:
@@ -45,8 +61,7 @@ class BatchedMerkleTree:
         self.batch = bsz
         self.num_leaves = n
         self.cap_height = cap_height
-        levels = [digests]
-        d_t = digests.reshape(bsz * n, 4).T
+        levels = [d_t.T.reshape(bsz, n, 4)]
         while n > (1 << cap_height):
             d_t = cuda_poseidon.reduce_level_t(d_t)
             n >>= 1
@@ -85,10 +100,20 @@ class MerkleTree:
     levels[i], down to the cap."""
 
     def __init__(self, leaf_data: torch.Tensor, cap_height: int = 0):
-        self._trees = BatchedMerkleTree(leaf_data[None], cap_height)
-        self.num_leaves = self._trees.num_leaves
-        self.cap_height = cap_height
-        self.levels = [lv[0] for lv in self._trees.levels]
+        self._view(BatchedMerkleTree(leaf_data[None], cap_height))
+
+    @classmethod
+    def from_polys(cls, polys: torch.Tensor, cap_height: int = 0):
+        """The tree over the columns of (k, N) polynomial values."""
+        tree = cls.__new__(cls)
+        tree._view(BatchedMerkleTree.from_polys(polys[None], cap_height))
+        return tree
+
+    def _view(self, trees: BatchedMerkleTree):
+        self._trees = trees
+        self.num_leaves = trees.num_leaves
+        self.cap_height = trees.cap_height
+        self.levels = [lv[0] for lv in trees.levels]
 
     @property
     def cap(self) -> torch.Tensor:

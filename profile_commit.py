@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Where the device time of the two commits and of FRI goes, on one GPU.
+"""Where the device time of the two commits, FRI and the prover goes, on one
+GPU.
 
     python3 profile_commit.py [--out DIR]
 
 Runs lde_commit at 2^20 x 64 and lde_commit_streamed at 2^22 x 64
-(rate_bits 3, cap_height 4), and fri_prove (FriConfig() defaults) of the ext
-codeword of a random degree < 2^20 pair (log_m 23), of the PyTorch/CUDA port
-once each to warm up, then once each under torch.profiler. For each run it
-prints the wall time, the summed device time of its kernels (one stream, so
+(rate_bits 3, cap_height 4), fri_prove (FriConfig() defaults) of the ext
+codeword of a random degree < 2^20 pair (log_m 23), and the snark
+prove_batch of 8 witnesses of chip_smoke's full-width circuit (log_n 12,
+CircuitConfig.poseidon_config(), FriConfig() defaults), of the PyTorch/CUDA
+port once each to warm up, then once each under torch.profiler (and the
+prove_batch once more with its steps timed). For each run it prints the
+wall time, the summed device time of its kernels (one stream, so
 the kernels do not overlap), the device's idle share, and the kernels by
 device time, then every device kernel that is not one of the port's own
 (csrc/) by name: the torch ops left around the kernels. It writes the
@@ -107,6 +111,9 @@ def main() -> int:
     from city_rollup_tpu_torch import _build, convert, pipeline
     from city_rollup_tpu_torch.core import fri, ntt
     from city_rollup_tpu_torch.core.challenger import Challenger
+    from city_rollup_tpu_torch.snark import (CircuitBuilder, CircuitConfig,
+                                             prover)
+    import chip_smoke as cs
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -135,12 +142,24 @@ def main() -> int:
         return lambda: fri.fri_prove(cw, log_n + cfg.rate_bits, 7, cfg,
                                      Challenger())
 
+    def prove_batch():
+        b = CircuitBuilder(CircuitConfig.poseidon_config())
+        paths = cs.merkle_paths_circuit(b, cs.FULL_PATHS)
+        data = b.build(min_log_n=cs.FULL_LOG_N)
+
+        def run(on_step=None):
+            pws = [cs.merkle_paths_witness(b, paths, seed)
+                   for seed in range(1, cs.PROVE_BATCH + 1)]
+            return prover.prove_batch(data, pws, on_step=on_step)
+        return run
+
     for name, tag, make in [
             ("lde_commit 2^20 x 64", "lde_commit_20",
              lambda: commit(pipeline.lde_commit, 20)),
             ("lde_commit_streamed 2^22 x 64", "lde_commit_streamed_22",
              lambda: commit(pipeline.lde_commit_streamed, 22)),
-            ("fri_prove log_m 23", "fri_prove_23", lambda: fri_prove(20))]:
+            ("fri_prove log_m 23", "fri_prove_23", lambda: fri_prove(20)),
+            ("prove_batch B=8 log_n 12", "prove_batch_8", prove_batch)]:
         run = make()
         run()
         torch.cuda.synchronize()
@@ -151,6 +170,12 @@ def main() -> int:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         phases = fri_phases(run) if tag.startswith("fri") else None
+        if tag.startswith("prove"):
+            timer = cs.StepTimer()
+            timer.start()
+            run(on_step=timer)
+            phases = {k: v * 1e3 for k, v in timer.steps.items()}
+            phases["total"] = sum(phases.values())
         del run
         kernels = [(e.key, e.count, _device_us(e) / 1e3)
                    for e in prof.key_averages() if _is_kernel(e)]
@@ -187,9 +212,9 @@ def main() -> int:
             "kernels": [{"name": k[:100], "count": c, "ms": ms}
                         for k, c, ms in kernels[:15]]}
         if phases:
-            print(f"{name} without the profiler, by step (inclusive wall "
-                  f"ms; each step synchronises the device at its ends):",
-                  flush=True)
+            print(f"{name} without the profiler, by step (wall ms; each "
+                  f"step synchronises the device at its ends; FRI's steps "
+                  f"nest, so they are inclusive):", flush=True)
             for step, ms in phases.items():
                 print(f"  {ms:10.3f} ms  {step}", flush=True)
             results[name]["steps_ms"] = phases

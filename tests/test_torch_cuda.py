@@ -98,7 +98,7 @@ def test_fourstep_kernels_match_radix2(cuda, monkeypatch):
                                     14))
 
 
-@pytest.mark.parametrize("n", [3, 8, 10, 64])
+@pytest.mark.parametrize("n", [3, 8, 10, 64, 14, 16, 20, 37, 144, 148])
 def test_sponge_kernel_matches_plain(cuda, n):
     x = convert.from_u64(_cols(n, 1 << 14, seed=n), cuda)
     got = cp.sponge_t(x)
@@ -153,3 +153,50 @@ def test_fri_golden_proof_on_card(cuda):
     assert cp.LAUNCHES["poseidon_permute"] > before
     assert chip_smoke.golden_fri_differences(proof) == []
     assert fri.fri_verify(proof, 8, 7, cfg, Challenger())
+
+
+def _snark_case(device, zk=False):
+    """chip_smoke's Merkle-path circuit (2 paths of height 3) under its
+    FAST configuration, built for `device`, and two witnesses."""
+    import chip_smoke
+    from city_rollup_tpu_torch.snark import CircuitBuilder, CircuitConfig
+    b = CircuitBuilder(chip_smoke.fast_config(CircuitConfig, fri.FriConfig,
+                                              zk=zk))
+    paths = chip_smoke.merkle_paths_circuit(b, 2, height=3)
+    return b.build(device=device), [
+        chip_smoke.merkle_paths_witness(b, paths, seed) for seed in (1, 2)]
+
+
+def test_snark_golden_proof_on_card(cuda):
+    import chip_smoke
+    from city_rollup_tpu_torch.snark import (CircuitBuilder, CircuitConfig,
+                                             prover, verifier)
+    b = CircuitBuilder(chip_smoke.fast_config(CircuitConfig, fri.FriConfig))
+    x = chip_smoke.tiny_circuit(b)
+    data = b.build()
+    pw = b.partial_witness()
+    pw.set(x, 3)
+    before = {**cn.LAUNCHES, **cp.LAUNCHES}
+    proof = prover.prove(data, pw)
+    after = {**cn.LAUNCHES, **cp.LAUNCHES}
+    assert all(after[k] > before[k] for k in
+               ("ntt_fourstep_tw", "ntt_block", "poseidon_sponge"))
+    assert chip_smoke.proof_digest(convert.proof_to_plain(proof)) == \
+        chip_smoke.GOLDEN_PROOF
+    assert verifier.verify(proof, data.common, data.verifier)
+
+
+def test_snark_prove_batch_on_card_equals_cpu(cuda):
+    """The card's batch of two equals the CPU's proofs one at a time, and
+    a zk proof made on the card verifies."""
+    from city_rollup_tpu_torch.snark import prover, verifier
+    data, pws = _snark_case(None)
+    cpu_data, cpu_pws = _snark_case("cpu")
+    batch = prover.prove_batch(data, pws)
+    for got, pw in zip(batch, cpu_pws):
+        assert convert.proof_to_plain(got) == \
+            convert.proof_to_plain(prover.prove(cpu_data, pw))
+        assert verifier.verify(got, data.common, data.verifier)
+    zk_data, zk_pws = _snark_case(None, zk=True)
+    assert verifier.verify(prover.prove(zk_data, zk_pws[0]), zk_data.common,
+                           zk_data.verifier)

@@ -191,3 +191,28 @@ def test_challenger_matches_reference():
     assert ch.state == jch.state
     with pytest.raises(ValueError):
         ch.observe_element(P)
+
+
+@pytest.mark.parametrize("claim", ["right", "wrong", "none"])
+def test_initial_eval_fn_matches_the_references(ref, claim):
+    """fri_verify's initial_eval_fn(query_round, index): the codeword's
+    value at each queried index passes; a wrong value in one round, or
+    None, rejects, in both packages' verifiers, on the same proof."""
+    cw = [convert.to_u64(c) for c in _port_codeword()]
+    seen = []
+
+    def value(qr, idx):
+        seen.append((qr, idx))
+        v = (int(cw[0][idx]), int(cw[1][idx]))
+        if claim == "none" and qr == 2:
+            return None
+        if claim == "wrong" and qr == CFG.num_query_rounds - 1:
+            return ((v[0] + 1) % P, v[1])
+        return v
+
+    want = claim == "right"
+    assert fri.fri_verify(ref[1], LOG_M, SHIFT, CFG, Challenger(),
+                          initial_eval_fn=value) == want
+    assert [i for _, i in seen] == list(ref[1].query_indices)[:len(seen)]
+    assert jfri.fri_verify(ref[1], LOG_M, SHIFT, JCFG, JChallenger(),
+                           initial_eval_fn=value) == want

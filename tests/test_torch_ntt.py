@@ -387,7 +387,8 @@ def _ints(t):
 @pytest.mark.parametrize("log_n,batch,log_in,mode,max_log", [
     (9, 3, 6, "coset_lde", 13), (8, 2, 8, "coset_intt", 13),
     (5, 1, 5, "intt", 13), (2, 2, 1, "coset_lde", 13),
-    (9, 2, 9, "ntt", 3)])
+    (9, 2, 9, "ntt", 3), (3, 5, 3, "intt", 13), (6, 2, 3, "coset_lde", 13),
+    (6, 2, 6, "coset_intt", 13)])
 def test_kernel_index_model_matches_plain(monkeypatch, log_n, batch, log_in,
                                           mode, max_log):
     """K1 then K2 as the CUDA code addresses them (modelled above) against

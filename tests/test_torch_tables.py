@@ -167,6 +167,11 @@ def test_port_imports_with_jax_blocked():
             for m in mods]
     assert {f"city_rollup_tpu_torch.core.{m}"
             for m in ("gl64_ext", "challenger", "fri")} <= set(mods)
+    assert {f"city_rollup_tpu_torch.snark.{m}"
+            for m in ("config", "algebra", "gates", "gate_poseidon",
+                      "circuit", "device_passes", "prover",
+                      "verifier")} <= set(mods)
+    assert "city_rollup_tpu_torch.snark" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['jaxlib'] = None\n"
