@@ -42,11 +42,33 @@ In order, it:
      run's wall time, peak device memory and step times; then has the host
      verifier accept every proof and reject a tampered one, and holds batch
      proof 0 == prove of its witness alone;
-  8. times each kernel, its plain version and its bound, and the whole
+  8. recursion: the tests' tiny chain (an inner proof wrapped by a 2^10
+     circuit that verifies it in-circuit) against GOLDEN_WRAP_PROOF (the
+     reference's proof, pinned by tests/test_torch_recursion.py); then, at
+     full width (poseidon_config(), FriConfig() at both levels), builds the
+     wrapper of the prove path's leaf proof (minifier.ProofMinifier: the
+     leaf's verifier data as constants, its 384 public inputs exposed
+     again; 2^15 rows) and the aggregation step's circuit, and holds K1/K2
+     and K4 at the shapes of both proves (every committed matrix's intt
+     and coset LDE, the quotient's coset_intt, the leaf widths), then
+     drives the recursion path once with every launch count set to 0: the
+     wrapper's preprocessing, its prove cold and warm, and an
+     aggregation-style step (aggregation_circuit: the wrapper's proof
+     verified against verifier data given as witness, its fingerprint the
+     public input); then has the host verifier accept both proofs, checks
+     their public inputs, has check_witness accept the wrapper's witness,
+     and has a leaf proof with one wire opening changed fail: no wrapper
+     witness completes, and check_witness names the gates a forged one
+     breaks;
+  9. times each kernel, its plain version and its bound, and the whole
      coset LDE of one streamed slab and of the one-shot input against its
-     byte bound, and K4, K1 and K2 at the prove path's shapes;
-and prints one JSON line of the prove path, one of the LDE and prove-path
-kernel times, one of kernels, then as its last line
+     byte bound, and K4, K1 and K2 at the prove and recursion paths'
+     shapes (K1 + K2 against the transform's bound: its input read once,
+     its output written once; beside it the four-step figure, which adds
+     the intermediate's write and read);
+and prints one JSON line of the prove path, one of the recursion path, one
+of the LDE, prove-path and recursion-path kernel times, one of kernels,
+then as its last line
 {"ok": true, "device": {...}}. Any failure raises, and the exit code is then
 non-zero. Without CUDA, or without the port's package beside it, it fails
 before printing any result.
@@ -54,6 +76,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -153,6 +176,13 @@ GOLDEN_FRI = {
 GOLDEN_PROOF = [16907637346382866868, 7186342146289174102,
                 1575200190949228284, 10531905707465559276]
 
+# proof_digest of the reference package's proof of the tiny recursion chain:
+# ProofMinifier.build(inner, wrap).prove(inner proof), where inner is
+# recursion_inner_circuit at RECURSION_INNER_XY and (inner, wrap) =
+# recursion_configs(...), zk off (pinned by tests/test_torch_recursion.py).
+GOLDEN_WRAP_PROOF = [3679485471568767130, 946507281515921971,
+                     3451506921347395455, 1019042481076856273]
+
 # The snark prover's circuits, one builder function each, run against either
 # package's CircuitBuilder. FAST_FRI is tests/test_device_passes.py's small
 # configuration (num_challenges 1); the full width is
@@ -217,6 +247,91 @@ def merkle_paths_witness(b, paths, seed: int):
     return pw
 
 
+# The recursion path. The tiny chain is tests/test_recursion.py's: an
+# inner circuit under a small FRI, wrapped by a 144-wire circuit whose FRI
+# differs only in its cap height. At full width both levels are
+# CircuitConfig.poseidon_config() with FriConfig() defaults, and the leaf is
+# merkle_paths_circuit's.
+RECURSION_FRI = dict(rate_bits=3, cap_height=1, proof_of_work_bits=4,
+                     num_query_rounds=4, final_poly_bits=2)
+RECURSION_INNER_XY = (3, 5)
+
+
+def recursion_configs(config_cls, fri_config_cls):
+    """(inner, wrapper) configurations of the tiny recursion chain."""
+    inner = config_cls(num_routed_wires=32, num_wires=32, num_challenges=2,
+                       fri=fri_config_cls(**RECURSION_FRI))
+    wrap = config_cls(num_routed_wires=32, num_wires=144, num_challenges=2,
+                      fri=fri_config_cls(**dict(RECURSION_FRI,
+                                                cap_height=2)))
+    return inner, wrap
+
+
+def recursion_inner_circuit(b):
+    """out = x * y + x + 7 with out public; returns (x, y)."""
+    x = b.add_virtual_target()
+    y = b.add_virtual_target()
+    b.register_public_input(b.add_const(b.add(b.mul(x, y), x), 7))
+    return x, y
+
+
+def aggregation_circuit(b, recursion, child_common):
+    """Verify one proof of shape child_common against verifier data given
+    as witness, the way an aggregation node admits a child (without the
+    fingerprint enum): the fingerprint of that verifier data is the
+    circuit's public input. Returns (proof targets, verifier-data
+    targets)."""
+    pt = recursion.add_virtual_proof(b, child_common)
+    vdt = recursion.add_virtual_verifier_data(b, child_common)
+    recursion.verify_proof_gadget(b, pt, child_common, vdt)
+    b.register_public_inputs(recursion.fingerprint_gadget(b, vdt))
+    return pt, vdt
+
+
+def with_target_value(data, wires, target, value: int):
+    """A copy of the (W, n) witness matrix of a circuit built by the port,
+    with every routed wire of target's copy class set to value: a witness
+    that agrees with itself on the copy constraints, for check_witness to
+    find the gate constraints that value breaks."""
+    wire_class, roots = data.prover.wire_classes
+    k = roots.index(data._builder.uf.find(target))
+    out = wires.copy()
+    routed = out[:wire_class.shape[0]]
+    routed[wire_class == k] = value
+    return out
+
+
+def gate_row_counts(data) -> dict:
+    """Rows of each gate kind in a built circuit."""
+    rows = {}
+    for r in data.prover.rows:
+        if r is not None:
+            rows[r.gate.key] = rows.get(r.gate.key, 0) + 1
+    return rows
+
+
+def full_width_circuit(builder_cls, config_cls):
+    """(builder, paths, data) of the prove path's full-width circuit:
+    FULL_PATHS Merkle paths in 2^FULL_LOG_N rows, poseidon_config()."""
+    b = builder_cls(config_cls.poseidon_config())
+    paths = merkle_paths_circuit(b, FULL_PATHS)
+    return b, paths, b.build(min_log_n=FULL_LOG_N)
+
+
+def wrapper_of(data, minifier, recursion):
+    """The wrapper of the circuit `data` (ProofMinifier.build: verifier
+    data as circuit constants, the public inputs exposed again) and a
+    function that makes its partial witness over one proof of `data`,
+    filled after build as the minifier's own prove does."""
+    wrap = minifier.ProofMinifier.build(data)
+
+    def witness(proof):
+        pw = wrap.data._builder.partial_witness()
+        recursion.set_proof_witness(pw, wrap.proof_targets, proof)
+        return pw
+    return wrap, witness
+
+
 # Bounds (H100 SXM datasheet peaks at 700 W): 3.35 TB/s of device
 # memory, and 67e12 operations/s outside the tensor cores (the float32 rate,
 # a multiply-add counted as 2). There is no faster rate for 32-bit integer
@@ -231,6 +346,16 @@ OPS_MULMOD = 16
 OPS_MDS_ENTRY = 4
 OPS_PERMUTATION = (8 * 12 * 4 + 22 * 4) * OPS_MULMOD + 30 * 144 * OPS_MDS_ENTRY
 
+
+
+def ntt_pair_bounds_ms(rows: int, n_in: int, n_out: int) -> tuple:
+    """(bound, four-step) byte times of one K1 + K2 transform of `rows`
+    rows, n_in values each in and n_out out. The bound is the function's:
+    the input read once, the output written once. The four-step figure
+    adds K1's write and K2's read of the intermediate (n_out values a
+    row), which the two-kernel design must move."""
+    bound = 8 * rows * (n_in + n_out) / MEM_BYTES_PER_S * 1e3
+    return bound, bound + 16 * rows * n_out / MEM_BYTES_PER_S * 1e3
 
 
 def ntt_products(log_m: int, n_values: int) -> int:
@@ -403,7 +528,10 @@ def main() -> int:
     from city_rollup_tpu_torch.core import ntt as tn
     from city_rollup_tpu_torch.core.challenger import Challenger
     from city_rollup_tpu_torch.snark import (CircuitBuilder, CircuitConfig,
-                                             prover, verifier)
+                                             minifier, prover, recursion,
+                                             verifier)
+    from city_rollup_tpu_torch.snark.circuit import generate_witness
+    from city_rollup_tpu_torch.snark.debug import check_witness
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -447,14 +575,10 @@ def main() -> int:
     # the full-width circuit (host only until its first proof): its
     # constants/sigmas width S is one of K4's leaf widths below
     t0 = time.perf_counter()
-    full_b = CircuitBuilder(CircuitConfig.poseidon_config())
-    full_paths = merkle_paths_circuit(full_b, FULL_PATHS)
-    full = full_b.build(min_log_n=FULL_LOG_N)
+    full_b, full_paths, full = full_width_circuit(CircuitBuilder,
+                                                  CircuitConfig)
     width_s = full.prover.const_sigma_values.shape[0]
-    gate_rows = {}
-    for r in full.prover.rows:
-        if r is not None:
-            gate_rows[r.gate.key] = gate_rows.get(r.gate.key, 0) + 1
+    gate_rows = gate_row_counts(full)
     log(f"phase build full-width circuit {time.perf_counter() - t0:.3f} s: "
         f"log_n {full.common.log_n}, {FULL_PATHS} paths of height "
         f"{MERKLE_HEIGHT}, gate rows {json.dumps(gate_rows)}, "
@@ -469,6 +593,26 @@ def main() -> int:
     # coset_intt (inverse, scaled by n^-1 shift^-k inside K2): log_m 8 in
     # the single proof (batch 1) and the B = 8 batch, log_m 5 in the golden
     # proof; and an intt (n^-1 only)
+    def check_k1k2(log_m, batch, log_in, mode, label=""):
+        """K1 then K2 against their plain versions on one transform."""
+        log_n2 = cn._split(log_m)
+        x = with_edges(rand((batch, 1 << log_in)))
+        pre = tn._coset_table(log_in, 7, dev) if mode == "coset_lde" \
+            else None
+        scale = None if mode == "coset_lde" else cn._table(
+            "oscale", cn._out_scale, log_m,
+            7 if mode == "coset_intt" else None, device=dev)
+        where = f"log_m={log_m} batch={batch} {mode}{label}"
+        y = cn._k1(x, log_m, log_n2, pre)
+        require_equal(y, by_rows(cn._k1_plain, x, log_m, log_n2, pre),
+                      f"ntt_fourstep_tw {where}")
+        y = with_edges(y.reshape(-1, min(128, y.shape[1]))).reshape(y.shape)
+        reverse = mode != "coset_lde"
+        require_equal(cn._k2(y, log_m, log_n2, 0, reverse, scale),
+                      by_rows(cn._k2_plain, y, log_m, log_n2, 0, reverse,
+                              scale),
+                      f"ntt_block {where}")
+
     t0 = time.perf_counter()
     for log_m, batch, log_in, mode in [
             (14, 3, 11, "coset_lde"), (23, 1, 20, "coset_lde"),
@@ -479,24 +623,7 @@ def main() -> int:
             (12, PROVE_BATCH * 144, 12, "intt"),
             (15, PROVE_BATCH * 144, 12, "coset_lde"),
             (15, PROVE_BATCH * 2, 15, "coset_intt")]:
-        log_n2 = cn._split(log_m)
-        x = with_edges(rand((batch, 1 << log_in)))
-        pre = tn._coset_table(log_in, 7, dev) if mode == "coset_lde" \
-            else None
-        scale = None if mode == "coset_lde" else cn._table(
-            "oscale", cn._out_scale, log_m,
-            7 if mode == "coset_intt" else None, device=dev)
-        where = f"log_m={log_m} batch={batch} {mode}"
-        y = cn._k1(x, log_m, log_n2, pre)
-        require_equal(y, by_rows(cn._k1_plain, x, log_m, log_n2, pre),
-                      f"ntt_fourstep_tw {where}")
-        y = with_edges(y.reshape(-1, min(128, y.shape[1]))).reshape(y.shape)
-        reverse = mode != "coset_lde"
-        require_equal(cn._k2(y, log_m, log_n2, 0, reverse, scale),
-                      by_rows(cn._k2_plain, y, log_m, log_n2, 0, reverse,
-                              scale),
-                      f"ntt_block {where}")
-        del x, y
+        check_k1k2(log_m, batch, log_in, mode)
         if log_m <= 23 and batch < 64:
             x = rand((batch, 1 << log_m))
             require_equal(tn.ntt(x, log_m),
@@ -746,6 +873,34 @@ def main() -> int:
     def witness(seed):
         return merkle_paths_witness(full_b, full_paths, seed)
 
+    def counted_prove(name, data, pws, runs):
+        """prove_batch(data, pws), timed by step, with its peak device
+        memory and its launches since the last counted run, in runs."""
+        nonlocal before
+        timer = StepTimer()
+        torch.cuda.reset_peak_memory_stats()
+        # what earlier phases left allocated (cached NTT and fold tables)
+        held = torch.cuda.memory_allocated() / 2**30
+        timer.start()
+        t_start = timer.last
+        proofs = prover.prove_batch(data, pws, on_step=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        now = all_launches()
+        runs.append({"name": name, "batch": len(pws),
+                     "log_n": data.common.log_n, "wall_s": wall,
+                     "peak_gib": peak, "held_before_gib": held,
+                     "steps_s": timer.steps,
+                     "launches": {k: now[k] - before[k] for k in now}})
+        before = now
+        log(f"phase {name} log_n {data.common.log_n} {wall:.6f} s, peak "
+            f"device memory {peak:.3f} GiB ({held:.3f} GiB held before "
+            f"it); steps "
+            f"{json.dumps({k: round(v, 6) for k, v in timer.steps.items()})}")
+        log(f"launches in {name}: {json.dumps(runs[-1]['launches'])}")
+        return proofs
+
     zero_launches()
     before = all_launches()
     prove_runs = []
@@ -759,28 +914,7 @@ def main() -> int:
                       ("prove B=1 warm", [witness(0)]),
                       (f"prove_batch B={PROVE_BATCH}",
                        [witness(s) for s in range(1, PROVE_BATCH + 1)])]:
-        timer = StepTimer()
-        torch.cuda.reset_peak_memory_stats()
-        # what earlier phases left allocated (cached NTT and fold tables)
-        held = torch.cuda.memory_allocated() / 2**30
-        timer.start()
-        t0 = timer.last
-        full_proofs[name] = prover.prove_batch(full, pws, on_step=timer)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        now = all_launches()
-        run = {"name": name, "batch": len(pws), "wall_s": wall,
-               "peak_gib": peak, "held_before_gib": held,
-               "steps_s": timer.steps,
-               "launches": {k: now[k] - before[k] for k in now}}
-        before = now
-        prove_runs.append(run)
-        log(f"phase {name} log_n {full.common.log_n} {wall:.6f} s, peak "
-            f"device memory {peak:.3f} GiB ({held:.3f} GiB held before "
-            f"it); steps "
-            f"{json.dumps({k: round(v, 6) for k, v in timer.steps.items()})}")
-        log(f"launches in {name}: {json.dumps(run['launches'])}")
+        full_proofs[name] = counted_prove(name, full, pws, prove_runs)
     path_launches["prove"] = all_launches()
     log(f"prove path launches {json.dumps(path_launches['prove'])}")
     require_launched(path_launches["prove"], PROVE_KERNELS, "prove")
@@ -820,7 +954,176 @@ def main() -> int:
         "height": MERKLE_HEIGHT, "gate_rows": gate_rows,
         "public_inputs": full.common.num_public_inputs,
         "runs": prove_runs, "verify_s": verify_s}
-    del full_proofs, one, warm, batch_proofs, alone
+    leaf_proof = warm
+    del full_proofs, one, batch_proofs, alone
+    torch.cuda.empty_cache()
+
+    # --- golden wrap proof ---------------------------------------------------
+    # the tests' tiny recursion chain: the inner proof (log_n 3), then the
+    # 2^10 wrapper that verifies it in-circuit
+    t0 = time.perf_counter()
+    inner_cfg, wrap_cfg = recursion_configs(CircuitConfig, fri.FriConfig)
+    inner_b = CircuitBuilder(inner_cfg)
+    inner_xy = recursion_inner_circuit(inner_b)
+    inner = inner_b.build()
+    pw = inner_b.partial_witness()
+    for t, v in zip(inner_xy, RECURSION_INNER_XY):
+        pw.set(t, v)
+    inner_proof = prover.prove(inner, pw)
+    tiny_wrap = minifier.ProofMinifier.build(inner, wrap_cfg)
+    golden = tiny_wrap.prove(inner_proof)
+    if proof_digest(convert.proof_to_plain(golden)) != GOLDEN_WRAP_PROOF:
+        raise AssertionError("golden wrap proof differs from the "
+                             "reference's")
+    if not verifier.verify(golden, tiny_wrap.data.common,
+                           tiny_wrap.data.verifier):
+        raise AssertionError("verify rejects the golden wrap proof")
+    log(f"check the tiny wrapper (log_n {tiny_wrap.data.common.log_n}) of "
+        f"the inner proof (log_n {inner.common.log_n}): equals "
+        f"GOLDEN_WRAP_PROOF, verifies ({time.perf_counter() - t0:.3f} s)")
+    del inner, inner_proof, tiny_wrap, golden
+
+    # --- the recursion path, once, counted ---------------------------------
+    # the wrapper of the full-width leaf proof (verifier data as circuit
+    # constants, the leaf's public inputs exposed again), built on the host
+    t0 = time.perf_counter()
+    wrap, wrap_witness = wrapper_of(full, minifier, recursion)
+    wrap_build_s = time.perf_counter() - t0
+    wrap_rows = gate_row_counts(wrap.data)
+    width_w = wrap.data.prover.const_sigma_values.shape[0]
+    log(f"phase build wrapper {wrap_build_s:.3f} s: log_n "
+        f"{wrap.data.common.log_n}, gate rows {json.dumps(wrap_rows)}, "
+        f"{sum(wrap_rows.values())} of {wrap.data.common.n} rows, "
+        f"{wrap.data.common.num_public_inputs} public inputs, S = {width_w}")
+    if wrap.data.common.log_n != 15 or \
+            wrap.data.common.num_public_inputs != \
+            full.common.num_public_inputs:
+        raise AssertionError("wrapper of an unexpected shape")
+    # the aggregation step's circuit (host) over the wrapper's shape
+    t0 = time.perf_counter()
+    agg_b = CircuitBuilder(CircuitConfig.poseidon_config())
+    agg_pt, agg_vdt = aggregation_circuit(agg_b, recursion, wrap.data.common)
+    agg = agg_b.build()
+    agg_build_s = time.perf_counter() - t0
+    agg_rows = gate_row_counts(agg)
+    log(f"phase build aggregation step {agg_build_s:.3f} s: log_n "
+        f"{agg.common.log_n}, gate rows {json.dumps(agg_rows)}, "
+        f"{sum(agg_rows.values())} of {agg.common.n} rows")
+
+    # K1/K2 and K4 at the shapes of the recursion path's proves (B = 1,
+    # 2^15 rows, 2^18 LDE points): the intt and coset LDE of each committed
+    # matrix (the wires, Z and partial products, the constants/sigmas of
+    # the wrapper and of the aggregation step), the quotient's coset_intt
+    # of (B, num_challenges) rows and the coset LDE of its chunks; the
+    # leaf widths over 2^18
+    width_a = agg.prover.const_sigma_values.shape[0]
+    t0 = time.perf_counter()
+    for rows in sorted({width_w, width_a, 144, 10}):
+        check_k1k2(15, rows, 15, "intt", " (recursion)")
+        check_k1k2(18, rows, 15, "coset_lde", " (recursion)")
+    check_k1k2(18, 16, 15, "coset_lde", " (recursion quotient chunks)")
+    for rows in (2, 16):
+        check_k1k2(18, rows, 18, "coset_intt", " (recursion)")
+    for n in sorted({144, width_w, width_a, 10, 16}):
+        x = with_edges(rand((n, 1 << 18)))
+        require_equal(cp.sponge_t(x), cp.sponge_t_plain(x),
+                      f"poseidon_sponge n={n} at {1 << 18} leaves "
+                      f"(recursion)")
+    del x
+    torch.cuda.empty_cache()
+    log(f"phase recursion kernel checks {time.perf_counter() - t0:.3f} s")
+
+    zero_launches()
+    before = all_launches()
+    t0 = time.perf_counter()
+    wrap_vd = wrap.data.verifier      # the preprocessing: K1, K2, K4
+    torch.cuda.synchronize()
+    wrap_pre_s = time.perf_counter() - t0
+    log(f"phase preprocess wrapper (S = {width_w}) {wrap_pre_s:.6f} s")
+    rec_runs, rec_proofs = [], {}
+    for name in ("wrap prove", "wrap prove warm"):
+        rec_proofs[name] = counted_prove(
+            name, wrap.data, [wrap_witness(leaf_proof)], rec_runs)[0]
+    wrap_proof = rec_proofs["wrap prove"]
+    # the aggregation step admits the wrapper's proof by the fingerprint of
+    # verifier data given as witness
+    t0 = time.perf_counter()
+    agg_vd = agg.verifier
+    torch.cuda.synchronize()
+    agg_pre_s = time.perf_counter() - t0
+    agg_pw = agg_b.partial_witness()
+    recursion.set_proof_witness(agg_pw, agg_pt, wrap_proof)
+    recursion.set_verifier_data_witness(agg_pw, agg_vdt, wrap_vd)
+    agg_proof = counted_prove("aggregation step prove", agg, [agg_pw],
+                              rec_runs)[0]
+    path_launches["recursion"] = all_launches()
+    log(f"recursion path launches {json.dumps(path_launches['recursion'])}")
+    # the recursion path proves its circuits as the prove path does
+    require_launched(path_launches["recursion"], PROVE_KERNELS, "recursion")
+
+    # outside the counted run: the host verifier, public inputs, tampering
+    if convert.proof_to_plain(wrap_proof) != convert.proof_to_plain(
+            rec_proofs["wrap prove warm"]):
+        raise AssertionError("wrap prove: second call differs")
+    rec_verify_s = {}
+    for name, proof, data, vd in [("wrap", wrap_proof, wrap.data, wrap_vd),
+                                  ("aggregation step", agg_proof, agg,
+                                   agg_vd)]:
+        t0 = time.perf_counter()
+        ok = verifier.verify(proof, data.common, vd)
+        rec_verify_s[name] = time.perf_counter() - t0
+        if not ok:
+            raise AssertionError(f"verify rejects the {name} proof")
+    if wrap_proof.public_inputs != leaf_proof.public_inputs:
+        raise AssertionError("the wrapper's public inputs are not the "
+                             "leaf's")
+    fingerprint = recursion.fingerprint_verifier_data(wrap_vd)
+    if agg_proof.public_inputs != fingerprint:
+        raise AssertionError("the aggregation step's public inputs are not "
+                             "the wrapper's fingerprint")
+    log(f"check verify accepts the wrap and aggregation-step proofs "
+        f"({rec_verify_s['wrap']:.3f}, "
+        f"{rec_verify_s['aggregation step']:.3f} s); the wrap exposes the "
+        f"leaf's {len(leaf_proof.public_inputs)} public inputs, the "
+        f"aggregation step the wrapper's fingerprint")
+    t0 = time.perf_counter()
+    wires = generate_witness(wrap.data, wrap_witness(leaf_proof))
+    pi_hash = prover.public_inputs_hash(leaf_proof.public_inputs)
+    if check_witness(wrap.data, wires, pi_hash):
+        raise AssertionError("check_witness rejects the wrapper's witness")
+    tampered = copy.deepcopy(leaf_proof)
+    w0 = tampered.openings.wires[0]
+    tampered.openings.wires[0] = ((w0[0] + 1) % P, w0[1])
+    try:
+        generate_witness(wrap.data, wrap_witness(tampered))
+        raise AssertionError("a tampered leaf proof completes into a "
+                             "wrapper witness")
+    except ValueError as e:
+        conflict = str(e)
+    forged = with_target_value(wrap.data, wires,
+                               wrap.proof_targets.openings.wires[0][0],
+                               tampered.openings.wires[0][0])
+    violations = check_witness(wrap.data, forged, pi_hash)
+    if not violations:
+        raise AssertionError("check_witness accepts the wrapper witness of a "
+                             "tampered leaf proof")
+    log(f"check a changed leaf wire opening: no wrapper witness "
+        f"({conflict[:60]}...), and check_witness reports "
+        f"{len(violations)} violated constraints on the forged one, the "
+        f"first {violations[0][:60]} ({time.perf_counter() - t0:.3f} s)")
+    recursion_line = {
+        "steps": [
+            {"name": "leaf", "log_n": full.common.log_n,
+             "rows": sum(gate_rows.values()), "gate_rows": gate_rows},
+            {"name": "wrap", "log_n": wrap.data.common.log_n,
+             "rows": sum(wrap_rows.values()), "gate_rows": wrap_rows,
+             "build_s": wrap_build_s, "preprocess_s": wrap_pre_s},
+            {"name": "aggregation step", "log_n": agg.common.log_n,
+             "rows": sum(agg_rows.values()), "gate_rows": agg_rows,
+             "build_s": agg_build_s, "preprocess_s": agg_pre_s}],
+        "runs": rec_runs, "verify_s": rec_verify_s,
+        "launches": path_launches["recursion"]}
+    del wrap, agg, agg_b, rec_proofs, wrap_proof, agg_proof, wires, forged
     torch.cuda.empty_cache()
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in path_launches["commit"]}
@@ -898,18 +1201,19 @@ def main() -> int:
     del b
     torch.cuda.empty_cache()
     # the whole coset LDE (K1 + K2) of one streamed slab and of the
-    # one-shot commit; its byte bound: the coefficients read once, the
-    # intermediate written and read once, the LDE written once
+    # one-shot commit, beside its byte bound (ntt_pair_bounds_ms)
     ldes = []
     for lb, ln in [(8, 22), (64, 20)]:
         c = rand((lb, 1 << ln))
-        nb = 8 * lb * ((1 << ln) + 3 * (1 << (ln + RATE_BITS)))
+        bound, fourstep = ntt_pair_bounds_ms(lb, 1 << ln,
+                                             1 << (ln + RATE_BITS))
         t = cuda_ms(lambda: tn.coset_lde(c, ln, RATE_BITS), 5)
         ldes.append({"shape": [[lb, 1 << ln], [lb, 1 << (ln + RATE_BITS)]],
-                     "ms": t, "bound_ms": nb / MEM_BYTES_PER_S * 1e3,
-                     "bound_by": "bytes"})
+                     "ms": t, "bound_ms": bound, "bound_by": "bytes",
+                     "fourstep_bytes_ms": fourstep})
         log(f"time coset_lde ({lb}, 2^{ln}) -> ({lb}, 2^{ln + RATE_BITS}): "
-            f"{t:.4f} ms, byte bound {nb / MEM_BYTES_PER_S * 1e3:.4f} ms")
+            f"{t:.4f} ms, byte bound {bound:.4f} ms (four-step "
+            f"{fourstep:.4f} ms)")
         del c
         torch.cuda.empty_cache()
     # the leaf hash of the 2^20 x 64 one-shot commit
@@ -976,21 +1280,67 @@ def main() -> int:
             ("coset_lde", lambda: tn.coset_lde(x, 12, RATE_BITS),
              1 << (12 + RATE_BITS))]:
         ms = cuda_ms(fn, 20)
-        nb = 8 * x.shape[0] * ((1 << 12) + 2 * n_out + n_out)
+        bound, fourstep = ntt_pair_bounds_ms(x.shape[0], 1 << 12, n_out)
         prove_kernels.append({
             "name": "ntt_fourstep_tw + ntt_block", "what": label,
             "shape": [list(x.shape), [x.shape[0], n_out]], "ms": ms,
-            "bound_ms": nb / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+            "bound_ms": bound, "bound_by": "bytes",
+            "fourstep_bytes_ms": fourstep})
         log(f"time {label} {tuple(x.shape)} -> ({x.shape[0]}, {n_out}): "
-            f"{ms:.4f} ms, byte bound {nb / MEM_BYTES_PER_S * 1e3:.4f} ms")
+            f"{ms:.4f} ms, byte bound {bound:.4f} ms (four-step "
+            f"{fourstep:.4f} ms)")
     del x
+    # the recursion path's own shapes (B = 1 at 2^15 rows): K4 on the
+    # wrapper's constants/sigmas leaves (its wires, Z and quotient leaves
+    # are the prove path's widths over the same 2^18), K1 + K2 as the
+    # wrapper's intt, coset LDE and the quotient's coset_intt
+    recursion_kernels = []
+    x = rand((width_w, 1 << 18))
+    perms = -(-width_w // 8)
+    t_bytes = 8 * (width_w + 4) * (1 << 18) / MEM_BYTES_PER_S * 1e3
+    t_ops = perms * OPS_PERMUTATION * (1 << 18) / OPS_PER_S * 1e3
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cp.sponge_t_plain(x)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    ms = cuda_ms(lambda: cp.sponge_t(x), 20)
+    recursion_kernels.append({
+        "name": "poseidon_sponge", "what": "wrapper constants/sigmas leaves",
+        "shape": [width_w, 1 << 18], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    log(f"time poseidon_sponge wrapper constants/sigmas leaves ({width_w}, "
+        f"{1 << 18}): {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{max(t_bytes, t_ops):.4f} ms")
+    x = rand((144, 1 << 15))
+    q = rand((2, 1 << 18))
+    for label, fn, rows, n_in, n_out in [
+            ("intt", lambda: tn.intt(x, 15), 144, 1 << 15, 1 << 15),
+            ("coset_lde", lambda: tn.coset_lde(x, 15, RATE_BITS), 144,
+             1 << 15, 1 << 18),
+            ("coset_intt", lambda: tn.coset_intt(q, 18), 2, 1 << 18,
+             1 << 18)]:
+        ms = cuda_ms(fn, 20)
+        bound, fourstep = ntt_pair_bounds_ms(rows, n_in, n_out)
+        recursion_kernels.append({
+            "name": "ntt_fourstep_tw + ntt_block", "what": f"wrapper {label}",
+            "shape": [[rows, n_in], [rows, n_out]], "ms": ms,
+            "bound_ms": bound, "bound_by": "bytes",
+            "fourstep_bytes_ms": fourstep})
+        log(f"time wrapper {label} ({rows}, {n_in}) -> ({rows}, {n_out}): "
+            f"{ms:.4f} ms, byte bound {bound:.4f} ms (four-step "
+            f"{fourstep:.4f} ms)")
+    del x, q
 
     missing = set(launches) - {k["name"] for k in kernels}
     if missing:
         raise AssertionError(f"no timing for {sorted(missing)}")
     log(card)
     log(json.dumps({"prove": prove_line}))
-    log(json.dumps({"coset_lde": ldes, "prove_kernels": prove_kernels}))
+    log(json.dumps({"recursion": recursion_line}))
+    log(json.dumps({"coset_lde": ldes, "prove_kernels": prove_kernels,
+                    "recursion_kernels": recursion_kernels}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

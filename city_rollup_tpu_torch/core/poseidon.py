@@ -3,7 +3,8 @@
 Counterpart of the reference's ``core/poseidon.py``. The plain permutation
 here runs on CPU tensors, in the transposed (12, B) layout that the kernels
 of ``cuda_poseidon`` use, with the MDS as the reference's ``_mds_layer``
-does it: 16-bit limbs times the 12x12 matrix, then one reduction.
+does it: 16-bit limbs times the 12x12 matrix, then one reduction (here two
+limbs to an int64 lane).
 
 On a CUDA tensor, ``permute`` runs the permutation kernel, and
 ``two_to_one`` and ``hash_no_pad`` the sponge kernel, at every batch size.
@@ -47,20 +48,27 @@ def _tables(device):
     return ent
 
 
+_LIMBS_0_2 = 0x0000_FFFF_0000_FFFF
+
+
 def _mds_layer(s: torch.Tensor, mds: torch.Tensor) -> torch.Tensor:
     """Exact MDS multiply on a (12, B) state via 16-bit limbs.
 
-    Each limb accumulator is < 264 * 2^16 < 2^25; the recombined value is
-    < 2^73 and is reduced once."""
-    limbs = torch.stack([(s >> (16 * k)) & 0xFFFF for k in range(4)])
-    acc = mds[0] * limbs[:, 0:1]                  # (4, 12, B)
+    The limbs go two to an int64 lane: limbs 0 and 2 at bits 0 and 32 of
+    one lane, limbs 1 and 3 of the other. Each limb accumulator is
+    < 264 * 2^16 < 2^25, so the two fields of a lane never meet; the
+    recombined value is < 2^73 and is reduced once."""
+    pairs = torch.stack([s & _LIMBS_0_2, (s >> 16) & _LIMBS_0_2])
+    acc = mds[0] * pairs[:, 0:1]                  # (2, 12, B)
     for i in range(1, WIDTH):
-        acc = acc + mds[i] * limbs[:, i:i + 1]
+        acc = acc + mds[i] * pairs[:, i:i + 1]
+    a0, a2 = acc[0] & gl64._M32, acc[0] >> 32
+    a1, a3 = acc[1] & gl64._M32, acc[1] >> 32
     # recombine the limb sums (bit positions 0, 16, 32, 48)
-    t1 = (acc[0] >> 16) + acc[1]
-    t2 = (t1 >> 16) + acc[2]
-    t3 = (t2 >> 16) + acc[3]
-    lo = ((acc[0] & 0xFFFF) | ((t1 & 0xFFFF) << 16)
+    t1 = (a0 >> 16) + a1
+    t2 = (t1 >> 16) + a2
+    t3 = (t2 >> 16) + a3
+    lo = ((a0 & 0xFFFF) | ((t1 & 0xFFFF) << 16)
           | ((t2 & 0xFFFF) << 32) | (t3 << 48))
     return gl64._reduce128(lo, t3 >> 16)
 

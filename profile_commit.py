@@ -8,9 +8,13 @@ Runs lde_commit at 2^20 x 64 and lde_commit_streamed at 2^22 x 64
 (rate_bits 3, cap_height 4), fri_prove (FriConfig() defaults) of the ext
 codeword of a random degree < 2^20 pair (log_m 23), and the snark
 prove_batch of 8 witnesses of chip_smoke's full-width circuit (log_n 12,
-CircuitConfig.poseidon_config(), FriConfig() defaults), of the PyTorch/CUDA
-port once each to warm up, then once each under torch.profiler (and the
-prove_batch once more with its steps timed). For each run it prints the
+CircuitConfig.poseidon_config(), FriConfig() defaults), and the prove of
+the wrapper that verifies one such proof in-circuit (log_n 15,
+minifier.ProofMinifier), of the PyTorch/CUDA port once each to warm up,
+then once each under torch.profiler (and each prove once more with its
+steps timed). --only TAG... runs only those (lde_commit_20,
+lde_commit_streamed_22, fri_prove_23, prove_batch_8, wrap_prove_15). For
+each run it prints the
 wall time, the summed device time of its kernels (one stream, so
 the kernels do not overlap), the device's idle share, and the kernels by
 device time, then every device kernel that is not one of the port's own
@@ -102,6 +106,7 @@ def fri_phases(run) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="profile_out")
+    ap.add_argument("--only", nargs="+", metavar="TAG")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_commit: CUDA is not available", file=sys.stderr)
@@ -112,7 +117,7 @@ def main() -> int:
     from city_rollup_tpu_torch.core import fri, ntt
     from city_rollup_tpu_torch.core.challenger import Challenger
     from city_rollup_tpu_torch.snark import (CircuitBuilder, CircuitConfig,
-                                             prover)
+                                             minifier, prover, recursion)
     import chip_smoke as cs
 
     out_dir = Path(args.out)
@@ -143,14 +148,22 @@ def main() -> int:
                                      Challenger())
 
     def prove_batch():
-        b = CircuitBuilder(CircuitConfig.poseidon_config())
-        paths = cs.merkle_paths_circuit(b, cs.FULL_PATHS)
-        data = b.build(min_log_n=cs.FULL_LOG_N)
+        b, paths, data = cs.full_width_circuit(CircuitBuilder, CircuitConfig)
 
         def run(on_step=None):
             pws = [cs.merkle_paths_witness(b, paths, seed)
                    for seed in range(1, cs.PROVE_BATCH + 1)]
             return prover.prove_batch(data, pws, on_step=on_step)
+        return run
+
+    def wrap_prove():
+        b, paths, data = cs.full_width_circuit(CircuitBuilder, CircuitConfig)
+        leaf = prover.prove(data, cs.merkle_paths_witness(b, paths, 0))
+        wrap, witness = cs.wrapper_of(data, minifier, recursion)
+
+        def run(on_step=None):
+            return prover.prove_batch(wrap.data, [witness(leaf)],
+                                      on_step=on_step)
         return run
 
     for name, tag, make in [
@@ -159,7 +172,10 @@ def main() -> int:
             ("lde_commit_streamed 2^22 x 64", "lde_commit_streamed_22",
              lambda: commit(pipeline.lde_commit_streamed, 22)),
             ("fri_prove log_m 23", "fri_prove_23", lambda: fri_prove(20)),
-            ("prove_batch B=8 log_n 12", "prove_batch_8", prove_batch)]:
+            ("prove_batch B=8 log_n 12", "prove_batch_8", prove_batch),
+            ("wrap prove log_n 15", "wrap_prove_15", wrap_prove)]:
+        if args.only and tag not in args.only:
+            continue
         run = make()
         run()
         torch.cuda.synchronize()
@@ -170,7 +186,7 @@ def main() -> int:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         phases = fri_phases(run) if tag.startswith("fri") else None
-        if tag.startswith("prove"):
+        if tag.startswith(("prove", "wrap")):
             timer = cs.StepTimer()
             timer.start()
             run(on_step=timer)

@@ -170,8 +170,13 @@ def test_port_imports_with_jax_blocked():
     assert {f"city_rollup_tpu_torch.snark.{m}"
             for m in ("config", "algebra", "gates", "gate_poseidon",
                       "circuit", "device_passes", "prover",
-                      "verifier")} <= set(mods)
-    assert "city_rollup_tpu_torch.snark" in mods
+                      "verifier", "gadgets", "recursion", "minifier",
+                      "verify_template", "debug", "u32", "sha256",
+                      "ripemd160", "biguint", "secp_gadgets")} <= set(mods)
+    assert {f"city_rollup_tpu_torch.crypto.{m}"
+            for m in ("hashes", "secp256k1", "felts")} <= set(mods)
+    assert {"city_rollup_tpu_torch.snark",
+            "city_rollup_tpu_torch.crypto"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['jaxlib'] = None\n"
