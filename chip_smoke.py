@@ -60,14 +60,33 @@ In order, it:
      and has a leaf proof with one wire opening changed fail: no wrapper
      witness completes, and check_witness names the gates a forged one
      breaks;
-  9. times each kernel, its plain version and its bound, and the whole
+  9. the rollup's block pipeline at DEFAULT_PARAMS (rollup_phase): the
+     CircuitToolbox's circuits (shape families A and B, block parts 1 and
+     2, the block transition) built and held against GOLDEN_ROLLUP_SHAPES
+     (the reference's host build), K1/K2, K3 and K4 held at its shapes
+     (2^16 and 2^17 rows, 2^19 and 2^20 LDE points), then, with every
+     launch count set to 0 before the circuits' preprocessing and before
+     each block: the CLI's demo block (cli.demo_genesis, demo_requests)
+     planned, drained by Worker.process_next_job and finalized, then
+     block2_requests on top of it drained by process_ready_batch(8) (one
+     prove_batch of B = 2 for each pair of same-circuit leaves) and
+     finalized; each block's city roots against GOLDEN_BLOCK_ROOTS (the
+     reference's plan), the transition proofs' public inputs against
+     them, every job's proof through the host verifier (in worker
+     processes), and a transfer aggregation over a child proof with one
+     wire opening changed: no witness completes, and check_witness names
+     the gates a forged one breaks;
+ 10. times each kernel, its plain version and its bound, and the whole
      coset LDE of one streamed slab and of the one-shot input against its
      byte bound, and K4, K1 and K2 at the prove and recursion paths'
      shapes (K1 + K2 against the transform's bound: its input read once,
      its output written once; beside it the four-step figure, which adds
-     the intermediate's write and read);
+     the intermediate's write and read), and at the rollup path's;
 and prints one JSON line of the prove path, one of the recursion path, one
-of the LDE, prove-path and recursion-path kernel times, one of kernels,
+of the rollup path (per job: circuit, rows, log_n, wall time, witness
+share, peak device memory; the builds, blocks and verifies), one of the
+LDE, prove-path, recursion-path and rollup-path kernel times, one of
+kernels,
 then as its last line
 {"ok": true, "device": {...}}. Any failure raises, and the exit code is then
 non-zero. Without CUDA, or without the port's package beside it, it fails
@@ -511,6 +530,637 @@ def proof_digest(plain) -> list[int]:
     return poseidon_host.hash_no_pad(list(flat(plain)))
 
 
+
+# --- the rollup's block pipeline (rollup/, cli.py) ------------------------
+# The start and end city roots of the CLI's demo block (checkpoint 1, after
+# cli.demo_genesis) and of BLOCK2 on top of it (checkpoint 2): the
+# reference package's Orchestrator.plan_block on the same requests at
+# DEFAULT_PARAMS' tree heights (pinned by tests/test_torch_rollup_plan.py).
+GOLDEN_BLOCK_ROOTS = [
+    [[13272895875839011391, 15398019101049385666, 67975128415407651,
+      16707484779058638326],
+     [13520145760351561049, 14628790721292608042, 9280862984646714284,
+      16724360801538604867]],
+    [[13520145760351561049, 14628790721292608042, 9280862984646714284,
+      16724360801538604867],
+     [3995204376582206952, 18403327578336029129, 11805410055402518411,
+      4600915536736799424]]]
+
+# The reference package's host build at DEFAULT_PARAMS (poseidon_config(),
+# FriConfig(), trees of height 32): each shape family's degree, gate keys,
+# rows of each member and sha256 of each member's const_sigma_values
+# (selectors, constants, sigmas; uint64 little-endian bytes, C order). The
+# block parts' constant columns hold the families' fingerprints, which the
+# reference derives only through the families' preprocessing (too slow on
+# a host); its host build ran with stand-in fingerprints that keep the
+# real ones' equalities (random felts: one aggregator and one dummy
+# fingerprint per shape family, one leaf fingerprint per op; equal
+# constants share a row), so the parts are pinned by degree, gate keys,
+# rows and the sha256 of their selector and sigma columns, which the
+# fingerprints' values do not change.
+GOLDEN_ROLLUP_SHAPES = {
+    "A": {"log_n": 16,
+          "gates": ["arithmetic<8>", "base_sum<16>", "base_sum<62>",
+                    "constant<2>", "poseidon", "public_input",
+                    "reducing<26>", "reducing_ext<13>"],
+          "rows": {"register": 201, "claim": 408, "transfer": 401,
+                   "add_withdrawal": 404, "dummy": 4, "agg": 53967},
+          "const_sigma_sha256": {
+              "register": "103871812a01886853ab56c15991dec4"
+                          "2e5b111d494c04f237eda08149a5bdc9",
+              "claim": "86f24ace67e0518c9f0d8a612ec5ba89"
+                       "899ea9398a3dbd32d59dde2e08999e95",
+              "transfer": "9ae10a70d8de2ddd0d78ef0ebde481b5"
+                          "1ed67ea0d7b27ea4c244d04e9e8a7b85",
+              "add_withdrawal": "26bb61681ce5d6405dda4d1c649f4c24"
+                                "a0ecf469c405f3af5a23239cfcab7c85",
+              "dummy": "814c4943c8158d97ef26bce6ce0af301"
+                       "6a859f562e504c985a73afccb91e281b",
+              "agg": "46785cd46549864fe96e7d37df4f64f9"
+                     "3741ccfa3cc050cacf211b968231975c"}},
+    "B": {"log_n": 16,
+          "gates": ["arithmetic<8>", "base_sum<16>", "constant<2>",
+                    "poseidon", "public_input", "reducing<26>",
+                    "reducing_ext<13>"],
+          "rows": {"process_withdrawal": 200, "add_deposit": 202,
+                   "dummy": 5, "agg": 53526},
+          "const_sigma_sha256": {
+              "process_withdrawal": "cfde9ebc1467d25c7ae10232ef43ea3c"
+                                    "dd37dafbcb8d0a450dbd1050d5e40afa",
+              "add_deposit": "0612f92ad13eb1415b0dd6b9aef884fc"
+                             "a992ca58f5b77b103e72a47bb1516460",
+              "dummy": "f92c0ba5d0c975204cc064dc79aec895"
+                       "5004e4727e1406df8a7ee242d9169c60",
+              "agg": "e1de15878403037e4cb5636960abafc1"
+                     "853a08b664c217622aae059399dcb67c"}},
+    "part1": {"log_n": 17, "rows": 80962,
+              "gates": ["constant<2>", "poseidon", "arithmetic<8>",
+                        "reducing_ext<13>", "base_sum<16>", "reducing<26>",
+                        "public_input"],
+              "sel_sigma_sha256": "bb95af32aea970418a684d76a07985b6"
+                                  "2442988a6b4b5489acb3561b428bd112"},
+    "part2": {"log_n": 17, "rows": 80527,
+              "gates": ["constant<2>", "poseidon", "arithmetic<8>",
+                        "reducing_ext<13>", "base_sum<16>", "reducing<26>",
+                        "public_input"],
+              "sel_sigma_sha256": "2d652564bcfdbfc0e8183dea98eaed74"
+                                  "0e7b7069b4a375b099165add9610068a"},
+}
+# The rollup path proves its circuits as the prove path does; K5 (the
+# streamed commit) and the tail kernel (past 2^13 a row) stay at 0.
+ROLLUP_KERNELS = PROVE_KERNELS
+
+
+def block2_requests(om):
+    """The second block, on top of the demo block: a register and two
+    transfers (om: either package's rollup.orchestrator)."""
+    return om.BlockRequests(
+        register_users=[om.RegisterUser(3, (4, 4, 4, 4))],
+        token_transfers=[om.TokenTransfer(0, 2, 40),
+                         om.TokenTransfer(1, 3, 30)])
+
+
+def holds_tensor(obj) -> bool:
+    """Whether a proof (or any nest of dataclasses, lists, tuples and dicts)
+    holds a torch tensor anywhere: a proof in the proof store must pickle
+    without the device."""
+    if isinstance(obj, torch.Tensor):
+        return True
+    if isinstance(obj, (list, tuple)):
+        return any(holds_tensor(v) for v in obj)
+    if isinstance(obj, dict):
+        return any(holds_tensor(v) for v in obj.values())
+    if hasattr(obj, "__dataclass_fields__"):
+        return any(holds_tensor(getattr(obj, f))
+                   for f in obj.__dataclass_fields__)
+    return False
+
+
+# The check and the items that in_forked_processes' workers run: set before
+# they fork, so that they share them and nothing of them is pickled.
+_FORKED = []
+
+
+def _run_forked(i):
+    """(check(items[i]), seconds) in a forked worker."""
+    check, items = _FORKED[0]
+    t0 = time.perf_counter()
+    ok = check(items[i])
+    return ok, time.perf_counter() - t0
+
+
+def in_forked_processes(check, items, workers: int = 6) -> list:
+    """[(check(item), seconds)] over items, in forked worker processes. For
+    host work only (the host verifier is python ints and numpy): what it
+    needs of the device, such as verifier data, is made before the fork.
+    The pool is closed before this returns."""
+    import gc
+    import multiprocessing
+    _FORKED[:] = [(check, items)]
+    gc.freeze()                 # the workers' gc leaves the parent's pages
+    try:
+        with multiprocessing.get_context("fork").Pool(workers) as pool:
+            return pool.map(_run_forked, range(len(items)), chunksize=1)
+    finally:
+        gc.unfreeze()
+        _FORKED.clear()
+
+
+def circuit_rows(data) -> int:
+    """Rows of a built circuit that hold a gate."""
+    return sum(r is not None for r in data.prover.rows)
+
+
+def sha256_u64(a) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a, dtype=np.uint64)
+                          .tobytes()).hexdigest()
+
+
+def sel_sigma_values(data) -> np.ndarray:
+    """The selector and sigma rows of const_sigma_values (the constants
+    between them left out)."""
+    v = data.prover.const_sigma_values
+    s = data.common.num_sel_cols
+    k = data.common.config.num_constants
+    return np.concatenate([v[:s], v[s + k:]])
+
+
+def rollup_shape_differences(toolbox) -> list[str]:
+    """What the toolbox's circuits do not reproduce of GOLDEN_ROLLUP_SHAPES
+    (empty when all of it matches)."""
+    bad = []
+    for fam_key, fam in (("A", toolbox.family_a), ("B", toolbox.family_b)):
+        want = GOLDEN_ROLLUP_SHAPES[fam_key]
+        members = dict(fam.leaves)
+        members.update(dummy=fam.dummy, agg=fam.agg)
+        for name, built in members.items():
+            d = built.data
+            got = {"log_n": d.common.log_n,
+                   "gates": [g.key for g in d.common.gates],
+                   "rows": circuit_rows(d),
+                   "sha": sha256_u64(d.prover.const_sigma_values)}
+            for k, w in (("log_n", want["log_n"]), ("gates", want["gates"]),
+                         ("rows", want["rows"][name]),
+                         ("sha", want["const_sigma_sha256"][name])):
+                if got[k] != w:
+                    bad.append(f"family {fam_key} {name} {k}: {got[k]} "
+                               f"!= {w}")
+    for part in ("part1", "part2"):
+        d = toolbox.block[part][0]
+        want = GOLDEN_ROLLUP_SHAPES[part]
+        got = {"log_n": d.common.log_n,
+               "gates": [g.key for g in d.common.gates],
+               "rows": circuit_rows(d),
+               "sel_sigma_sha256": sha256_u64(sel_sigma_values(d))}
+        bad += [f"{part} {k}: {got[k]} != {w}" for k, w in want.items()
+                if got[k] != w]
+    return bad
+
+
+class ProveRecorder:
+    """While entered, wraps the port's prover.prove_batch (which prove
+    calls) so that each call made by the worker is recorded: circuit,
+    batch, wall time on the host clock (the device synchronised at both
+    ends), its steps (prove_batch's on_step), peak device memory and what
+    was held before it. `keep` (a CircuitData) also keeps the last wire
+    matrix generated for that circuit."""
+
+    def __init__(self, prover_mod, circuit_mod, keep=None):
+        self.prover = prover_mod
+        self.circuit = circuit_mod
+        self.keep = keep
+        self.kept = None
+        self.calls = []
+
+    def __enter__(self):
+        self._batch = self.prover.prove_batch
+        self._witness = self.prover.generate_witness
+
+        def witness(data, pw):
+            w = self._witness(data, pw)
+            if data is self.keep:
+                self.kept = w
+            return w
+
+        def prove_batch(data, pws, **kw):
+            timer = StepTimer()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 2**30
+            timer.start()
+            t0 = timer.last
+            proofs = self._batch(data, pws, on_step=timer, **kw)
+            torch.cuda.synchronize()
+            self.calls.append({
+                "data": data, "batch": len(pws),
+                "wall_s": time.perf_counter() - t0, "steps_s": timer.steps,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "held_before_gib": held})
+            return proofs
+
+        self.prover.prove_batch = prove_batch
+        self.prover.generate_witness = witness
+        return self
+
+    def __exit__(self, *exc):
+        self.prover.prove_batch = self._batch
+        self.prover.generate_witness = self._witness
+
+
+
+def rollup_phase(dev, all_launches, zero_launches):
+    """The rollup's block pipeline at DEFAULT_PARAMS, on the card: the
+    toolbox's circuits built and held against GOLDEN_ROLLUP_SHAPES, K1/K2,
+    K3 and K4 held against their plain versions at its shapes, then two
+    blocks proved through the worker and finalized, every job's proof
+    host-verified, and an aggregation over a changed child proof refused.
+    Returns (the rollup JSON line, kernel times at its shapes, its
+    launches: the circuits' preprocessing and both blocks, counted from 0
+    around each)."""
+    from city_rollup_tpu_torch import cli
+    from city_rollup_tpu_torch.core import cuda_ntt as cn
+    from city_rollup_tpu_torch.core import cuda_poseidon as cp
+    from city_rollup_tpu_torch.core import ntt as tn
+    from city_rollup_tpu_torch.rollup import orchestrator as om
+    from city_rollup_tpu_torch.rollup.circuits import (
+        DEFAULT_PARAMS, FAMILY_BY_AGG, FAMILY_BY_DUMMY, OP_NAME_BY_TYPE,
+        SHAPE_BY_FAMILY, CircuitToolbox, decode_proof, decode_witness)
+    from city_rollup_tpu_torch.rollup.city_store import CityStore
+    from city_rollup_tpu_torch.rollup.job_id import CircuitType, JobID
+    from city_rollup_tpu_torch.rollup.proof_store import MemoryProofStore
+    from city_rollup_tpu_torch.rollup.queues import QueueHub
+    from city_rollup_tpu_torch.rollup.worker import Worker
+    from city_rollup_tpu_torch.snark import circuit, prover
+    from city_rollup_tpu_torch.snark.debug import check_witness
+
+    params = DEFAULT_PARAMS
+    cfg = params.config
+    counted = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+
+    def rand(shape):
+        """Canonical random felts made on the card (hi < 2^32 - 1)."""
+        lo = torch.randint(0, 1 << 32, shape, generator=gen, device=dev)
+        hi = torch.randint(0, (1 << 32) - 1, shape, generator=gen,
+                           device=dev)
+        return (hi << 32) | lo
+
+    edge = [0, 1, P - 1, (1 << 32) - 1, 1 << 32, 1 << 63]
+
+    def with_edges(x):
+        """x with the edge values in its first columns, as main's."""
+        for j, v in enumerate(edge[:x.shape[1]]):
+            x[:, j] = v - (1 << 64) if v >= 1 << 63 else v
+            if j < x.shape[0]:
+                x[j, 64:128] = x[0, j]
+        return x
+
+    def add_counts():
+        for k, v in all_launches().items():
+            counted[k] = counted.get(k, 0) + v
+
+    # --- build: the families on the host, their preprocessing (the
+    # fingerprints), the block circuits (the parts' preprocessing inside:
+    # the transition verifies them with constant verifier data) ----------
+    zero_launches()
+    toolbox = CircuitToolbox(params, device=dev)
+    build_s = {}
+    for name, build in [
+            ("family A", lambda: toolbox.family_a),
+            ("family B", lambda: toolbox.family_b),
+            ("families' preprocessing",
+             lambda: [toolbox.family_fps(n) for n in SHAPE_BY_FAMILY]),
+            ("block circuits", lambda: toolbox.block),
+            ("transition preprocessing",
+             lambda: toolbox.block["transition"][0].verifier)]:
+        t0 = time.perf_counter()
+        build()
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+        log(f"phase rollup build {name} {build_s[name]:.3f} s")
+    toolbox.prewarm()
+    add_counts()
+    circuits = {}
+    for fam_key, fam in (("A", toolbox.family_a), ("B", toolbox.family_b)):
+        for name, built in list(fam.leaves.items()) + [
+                ("dummy", fam.dummy), ("agg", fam.agg)]:
+            circuits[f"{fam_key} {name}"] = built.data
+    for part in ("part1", "part2", "transition"):
+        circuits[part] = toolbox.block[part][0]
+    shapes = {name: {"rows": circuit_rows(d), "log_n": d.common.log_n,
+                     "S": d.prover.const_sigma_values.shape[0],
+                     "gates": [g.key for g in d.common.gates]}
+              for name, d in circuits.items()}
+    for name, sh in shapes.items():
+        log(f"rollup circuit {name}: {sh['rows']} rows, log_n "
+            f"{sh['log_n']}, S = {sh['S']}, gates {sh['gates']}")
+    wrong = rollup_shape_differences(toolbox)
+    if wrong:
+        raise AssertionError(f"rollup circuits differ from the "
+                             f"reference's: {wrong[:6]}")
+    log("check the rollup circuits (families A and B, block parts 1 and 2) "
+        "equal GOLDEN_ROLLUP_SHAPES")
+
+    # --- K1/K2, K3, K4 against their plain versions at this path's shapes:
+    # every committed matrix's intt and coset LDE (wires, Z and partial
+    # products, quotient chunks, each circuit's constants/sigmas), the
+    # quotient's coset_intt, the leaf widths over 2^19 and 2^20 leaves,
+    # a Merkle level, a grinding batch. The kernel runs on the whole
+    # matrix; the plain versions, slow, on 8 of its rows or 2^12 of its
+    # leaves at each end (the edge values among them) ------------------------
+    nc = cfg.num_challenges
+    # the wires, Z and partial products, quotient chunks
+    widths = {cfg.num_wires, nc * (1 + cfg.num_partial_products),
+              nc * cfg.quotient_chunks}
+    t0 = time.perf_counter()
+    plain_s = []
+
+    def slice_rows(x):
+        return x[:8] if x.shape[0] <= 16 else torch.cat([x[:8], x[-8:]])
+
+    def check_ntt(log_n, rows, mode, label):
+        log_m = log_n + cfg.rate_bits
+        log_in = log_n if mode != "coset_intt" else log_m
+        log_t = log_n if mode == "intt" else log_m
+        log_n2 = cn._split(log_t)
+        x = with_edges(rand((rows, 1 << log_in)))
+        pre = tn._coset_table(log_in, 7, dev) if mode == "coset_lde" \
+            else None
+        scale = None if mode == "coset_lde" else cn._table(
+            "oscale", cn._out_scale, log_t,
+            7 if mode == "coset_intt" else None, device=dev)
+        where = f"({rows}, 2^{log_in}) {mode} {label}"
+        y = cn._k1(x, log_t, log_n2, pre)
+        tp = time.perf_counter()
+        require_equal(slice_rows(y),
+                      cn._k1_plain(slice_rows(x), log_t, log_n2, pre),
+                      f"ntt_fourstep_tw {where}")
+        y = with_edges(y.reshape(-1, min(128, y.shape[1]))).reshape(y.shape)
+        reverse = mode != "coset_lde"
+        require_equal(slice_rows(cn._k2(y, log_t, log_n2, 0, reverse,
+                                         scale)),
+                      cn._k2_plain(slice_rows(y), log_t, log_n2, 0, reverse,
+                                   scale),
+                      f"ntt_block {where}")
+        plain_s.append(time.perf_counter() - tp)
+
+    def check_sponge(n, cols, label):
+        x = with_edges(rand((n, cols)))
+        got = cp.sponge_t(x)
+        ends = torch.cat([x[:, :4096], x[:, -4096:]], dim=1)
+        tp = time.perf_counter()
+        require_equal(torch.cat([got[:, :4096], got[:, -4096:]], dim=1),
+                      cp.sponge_t_plain(ends),
+                      f"poseidon_sponge n={n} at {cols} leaves ({label}, "
+                      f"both ends)")
+        plain_s.append(time.perf_counter() - tp)
+
+    by_log_n = {}
+    for name, sh in shapes.items():
+        by_log_n.setdefault(sh["log_n"], set()).add(sh["S"])
+    for log_n, s_widths in sorted(by_log_n.items()):
+        for rows in sorted(widths | s_widths):
+            check_ntt(log_n, rows, "intt", "(rollup)")
+            check_ntt(log_n, rows, "coset_lde", "(rollup)")
+        check_ntt(log_n, nc, "coset_intt", "(rollup quotient)")
+        for n in sorted(widths | s_widths):
+            check_sponge(n, 1 << (log_n + cfg.rate_bits), "rollup")
+        torch.cuda.empty_cache()
+    level = with_edges(rand((4, 1 << 20)))
+    require_equal(cp.reduce_level_t(level), cp.reduce_level_t_plain(level),
+                  "poseidon_sponge level entry (4, 2^20) (rollup)")
+    states = with_edges(rand((12, 1 << 17)))
+    require_equal(cp.permute_t(states), cp.permute_t_plain(states),
+                  "poseidon_permute (12, 2^17) (rollup grinding)")
+    del level, states
+    torch.cuda.empty_cache()
+    log(f"phase rollup kernel checks {time.perf_counter() - t0:.3f} s "
+        f"(plain versions {sum(plain_s):.3f} s)")
+
+    # --- the blocks ----------------------------------------------------------
+    def family_of(ct):
+        for table in (OP_NAME_BY_TYPE, FAMILY_BY_DUMMY, FAMILY_BY_AGG):
+            if ct in table:
+                return table[ct]
+        return None
+
+    block_ct = {CircuitType.BLOCK_AGG_STATE_PART_1: "part1",
+                CircuitType.BLOCK_AGG_STATE_PART_2: "part2",
+                CircuitType.BLOCK_STATE_TRANSITION: "transition"}
+
+    def record_jobs(block, jobs, calls):
+        """Per-job lines from the worker's benchmarks and the recorder's
+        prove_batch calls (one call per job, or one per batched group)."""
+        out = []
+        for (job, ms), call in zip(jobs, calls):
+            steps = call["steps_s"]
+            out.append({
+                "block": block, "job": CircuitType(job.circuit_type).name,
+                "rows": circuit_rows(call["data"]),
+                "log_n": call["data"].common.log_n,
+                "batch": call["batch"], "wall_s": call["wall_s"],
+                "job_ms": ms,
+                "witness_share": steps.get("witness", 0.0) / call["wall_s"],
+                "steps_s": steps, "peak_gib": call["peak_gib"],
+                "held_before_gib": call["held_before_gib"]})
+            log(f"job {block} {out[-1]['job']} log_n {out[-1]['log_n']} "
+                f"({out[-1]['rows']} rows, B = {call['batch']}): "
+                f"{call['wall_s']:.3f} s, witness "
+                f"{out[-1]['witness_share']:.3f}, peak "
+                f"{call['peak_gib']:.3f} GiB ({call['held_before_gib']:.3f} "
+                f"held)")
+        return out
+
+    def verify_block(store, jobs):
+        """Every job's proof through the port's host verifier, the jobs
+        spread over worker processes; returns the seconds of each."""
+        items = []
+        for job, _ in jobs:
+            proof = decode_proof(store.get_proof(job.output_proof_id()))
+            if holds_tensor(proof):
+                raise AssertionError("a stored proof holds a torch tensor")
+            items.append((CircuitType(job.circuit_type), proof))
+
+        def check(item):
+            ct, proof = item
+            if ct in block_ct:
+                return toolbox.verify_block_proof(block_ct[ct], proof)
+            return toolbox.verify_family_proof(family_of(ct), proof)
+        results = in_forked_processes(check, items)
+        for (ct, _), (ok, _) in zip(items, results):
+            if not ok:
+                raise AssertionError(f"verify rejects the {ct.name} proof")
+        return [t for _, t in results]
+
+    city = CityStore(user_tree_height=params.user_tree_height,
+                     deposit_tree_height=params.deposit_tree_height,
+                     withdrawal_tree_height=params.withdrawal_tree_height)
+    store = MemoryProofStore()
+    hub = QueueHub()
+    orch = om.Orchestrator(city, store, hub, params=params)
+    worker = Worker(toolbox, store, hub)
+    cli.demo_genesis(city, params)
+    blocks, jobs_line, verify_s = [], [], {}
+    keep = toolbox.family_a.agg.data
+    for block, requests, drain in [
+            (1, cli.demo_requests(), "process_next_job"),
+            (2, block2_requests(om), "process_ready_batch")]:
+        zero_launches()
+        t0 = time.perf_counter()
+        planned = orch.plan_block(block, requests)
+        roots = [list(planned.start_city_root), list(planned.end_city_root)]
+        if roots != GOLDEN_BLOCK_ROOTS[block - 1]:
+            raise AssertionError(f"block {block}: city roots {roots} are "
+                                 "not the reference's")
+        orch.enqueue(planned)
+        n_bench = len(worker.benchmarks)
+        with ProveRecorder(prover, circuit, keep=keep) as rec:
+            if drain == "process_next_job":
+                while worker.process_next_job():
+                    pass
+            else:
+                while worker.process_ready_batch(max_batch=8):
+                    pass
+        benches = worker.benchmarks[n_bench:]
+        if len(benches) != planned.num_jobs:
+            raise AssertionError(f"block {block}: {len(benches)} jobs "
+                                 f"proved of {planned.num_jobs}")
+        jobs = [(JobID.from_bytes(bytes.fromhex(b.job_id)), b.duration_ms)
+                for b in benches]
+        # one recorder call per job, or per batched group (its members
+        # share the call): process_ready_batch proves its groups, then its
+        # single jobs, in the order of its benchmarks
+        calls = []
+        for call in rec.calls:
+            calls += [call] * call["batch"]
+        ok = orch.finalize(planned, toolbox)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        add_counts()
+        if not ok:
+            raise AssertionError(f"block {block}: finalize rejects the "
+                                 "transition proof")
+        final = decode_proof(store.get_proof(
+            planned.final_job.output_proof_id()))
+        if [list(final.public_inputs[0:4]),
+                list(final.public_inputs[4:8])] != roots:
+            raise AssertionError(f"block {block}: the transition proof's "
+                                 "public inputs are not the city roots")
+        jobs_line += record_jobs(block, jobs, calls)
+        groups = [c["batch"] for c in rec.calls]
+        log(f"phase rollup block {block} ({planned.num_jobs} jobs, "
+            f"{drain}, prove_batch sizes {groups}) {wall:.3f} s, "
+            f"finalize: {ok}")
+        t0 = time.perf_counter()
+        verify_s[block] = verify_block(store, jobs)
+        log(f"check verify accepts all {len(jobs)} proofs of block {block} "
+            f"({time.perf_counter() - t0:.3f} s in worker processes, "
+            f"{sum(verify_s[block]):.3f} s of verifying)")
+        blocks.append({"block": block, "jobs": planned.num_jobs,
+                       "drain": drain, "wall_s": wall,
+                       "prove_batch_sizes": groups, "roots": roots,
+                       "finalized": ok})
+        if drain == "process_ready_batch" and max(groups) < 2:
+            raise AssertionError("block 2 ran no prove_batch with B > 1")
+    agg_witness = rec.kept             # block 2's transfer aggregation
+    log("check blocks 1 and 2: the reference's city roots, finalized, the "
+        "transition proofs' public inputs the roots; block 2 proved a "
+        "batch of more than one")
+
+    # --- tampering: the transfer aggregation of block 2 over a child proof
+    # with one wire opening changed -------------------------------------------
+    t0 = time.perf_counter()
+    agg_job = next(j for j, _ in jobs if j.circuit_type ==
+                   int(CircuitType.AGG_L2_TRANSFER))
+    w = decode_witness(store.get_bytes(agg_job.input_witness_id()))
+    children = [(decode_proof(store.get_proof(JobID.from_bytes(
+        bytes.fromhex(ch)).output_proof_id())), kind,
+        (tuple(sp["start"]), tuple(sp["end"])))
+        for ch, kind, sp in zip(w["children"], w["child_kinds"],
+                                w["child_spans"])]
+    agg_proof = decode_proof(store.get_proof(agg_job.output_proof_id()))
+    pi_hash = prover.public_inputs_hash(agg_proof.public_inputs)
+    tampered = copy.deepcopy(children[0][0])
+    w0 = tampered.openings.wires[0]
+    tampered.openings.wires[0] = ((w0[0] + 1) % P, w0[1])
+    data, pw = toolbox.prepare_agg(
+        "transfer", [(tampered,) + children[0][1:], children[1]])
+    try:
+        circuit.generate_witness(data, pw)
+        raise AssertionError("an aggregation over a tampered child proof "
+                             "completes into a witness")
+    except ValueError as e:
+        conflict = str(e)
+    target = toolbox.family_a.agg.targets["sides"][0]["pt"] \
+        .openings.wires[0][0]
+    forged = with_target_value(data, agg_witness, target,
+                               tampered.openings.wires[0][0])
+    violations = check_witness(data, forged, pi_hash)
+    if not violations:
+        raise AssertionError("check_witness accepts the aggregation "
+                             "witness of a tampered child proof")
+    tamper_s = time.perf_counter() - t0
+    log(f"check a changed child wire opening: no aggregation witness "
+        f"({conflict[:60]}...), and check_witness reports "
+        f"{len(violations)} violated constraints on the forged one, the "
+        f"first {violations[0][:60]} ({tamper_s:.3f} s)")
+    del agg_witness, forged
+
+    # --- kernel times at this path's shapes (B = 1: 2^16 and 2^17 rows) ------
+    kernel_times = []
+    for log_n in sorted(by_log_n):
+        log_m = log_n + cfg.rate_bits
+        x = rand((cfg.num_wires, 1 << log_n))
+        q = rand((nc, 1 << log_m))
+        for label, fn, rows, n_in, n_out in [
+                ("wires intt", lambda: tn.intt(x, log_n), cfg.num_wires,
+                 1 << log_n, 1 << log_n),
+                ("wires coset_lde",
+                 lambda: tn.coset_lde(x, log_n, cfg.rate_bits),
+                 cfg.num_wires, 1 << log_n, 1 << log_m),
+                ("quotient coset_intt", lambda: tn.coset_intt(q, log_m), nc,
+                 1 << log_m, 1 << log_m)]:
+            ms = cuda_ms(fn, 10)
+            bound, fourstep = ntt_pair_bounds_ms(rows, n_in, n_out)
+            kernel_times.append({
+                "name": "ntt_fourstep_tw + ntt_block", "what": label,
+                "shape": [[rows, n_in], [rows, n_out]], "ms": ms,
+                "bound_ms": bound, "bound_by": "bytes",
+                "fourstep_bytes_ms": fourstep})
+            log(f"time rollup {label} ({rows}, {n_in}) -> ({rows}, "
+                f"{n_out}): {ms:.4f} ms, byte bound {bound:.4f} ms")
+        del x, q
+        for label, n in [("wires", cfg.num_wires),
+                         ("constants/sigmas", max(by_log_n[log_n]))]:
+            y = rand((n, 1 << log_m))
+            t_bytes = 8 * (n + 4) * (1 << log_m) / MEM_BYTES_PER_S * 1e3
+            t_ops = -(-n // 8) * OPS_PERMUTATION * (1 << log_m) / \
+                OPS_PER_S * 1e3
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cp.sponge_t_plain(y)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t) * 1e3
+            ms = cuda_ms(lambda: cp.sponge_t(y), 5)
+            kernel_times.append({
+                "name": "poseidon_sponge", "what": f"{label} leaves",
+                "shape": [n, 1 << log_m], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            log(f"time rollup poseidon_sponge {label} leaves ({n}, "
+                f"{1 << log_m}): {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+                f"bound {max(t_bytes, t_ops):.4f} ms")
+            del y
+        torch.cuda.empty_cache()
+
+    line = {"circuits": shapes, "build_s": build_s, "blocks": blocks,
+            "jobs": jobs_line,
+            "verify_s": {str(k): v for k, v in verify_s.items()},
+            "tamper_s": tamper_s, "launches": counted}
+    return line, kernel_times, counted
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -935,15 +1585,17 @@ def main() -> int:
             batch_proofs[0]):
         raise AssertionError("prove_batch proof 0 != prove alone")
     log("check prove_batch proof 0 == prove of its witness alone")
-    verify_s = []
-    for i, proof in enumerate([one] + batch_proofs):
-        t0 = time.perf_counter()
-        ok = verifier.verify(proof, full.common, full_vd)
-        verify_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    results = in_forked_processes(
+        lambda proof: verifier.verify(proof, full.common, full_vd),
+        [one] + batch_proofs)
+    verify_s = [t for _, t in results]
+    for i, (ok, _) in enumerate(results):
         if not ok:
             raise AssertionError(f"verify rejects full-width proof {i}")
     log(f"check verify accepts all {len(verify_s)} full-width proofs "
-        f"({', '.join(f'{t:.3f}' for t in verify_s)} s)")
+        f"({', '.join(f'{t:.3f}' for t in verify_s)} s; "
+        f"{time.perf_counter() - t0:.3f} s in worker processes)")
     w0 = one.openings.wires[0]
     one.openings.wires[0] = ((w0[0] + 1) % P, w0[1])
     if verifier.verify(one, full.common, full_vd):
@@ -1124,6 +1776,13 @@ def main() -> int:
         "runs": rec_runs, "verify_s": rec_verify_s,
         "launches": path_launches["recursion"]}
     del wrap, agg, agg_b, rec_proofs, wrap_proof, agg_proof, wires, forged
+    torch.cuda.empty_cache()
+
+    # --- the rollup's block pipeline, counted --------------------------------
+    rollup_line, rollup_kernels, path_launches["rollup"] = rollup_phase(
+        dev, all_launches, zero_launches)
+    log(f"rollup path launches {json.dumps(path_launches['rollup'])}")
+    require_launched(path_launches["rollup"], ROLLUP_KERNELS, "rollup")
     torch.cuda.empty_cache()
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in path_launches["commit"]}
@@ -1339,8 +1998,10 @@ def main() -> int:
     log(card)
     log(json.dumps({"prove": prove_line}))
     log(json.dumps({"recursion": recursion_line}))
+    log(json.dumps({"rollup": rollup_line}))
     log(json.dumps({"coset_lde": ldes, "prove_kernels": prove_kernels,
-                    "recursion_kernels": recursion_kernels}))
+                    "recursion_kernels": recursion_kernels,
+                    "rollup_kernels": rollup_kernels}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

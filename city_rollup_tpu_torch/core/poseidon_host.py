@@ -7,21 +7,22 @@ traits/hasher.rs)."""
 
 from __future__ import annotations
 
+import operator
+
 from .gl64 import P
 from . import poseidon_params as params
 
 
+# the MDS layer as one 12 x 12 matrix: row r holds circ[(j - r) % 12] at
+# column j, plus diag[r] at column r (the circulant-plus-diagonal form the
+# reference's _mds sums term by term)
+_MDS_ROWS = [[params.MDS_MATRIX_CIRC[(j - r) % params.WIDTH] +
+              (params.MDS_MATRIX_DIAG[r] if j == r else 0)
+              for j in range(params.WIDTH)] for r in range(params.WIDTH)]
+
+
 def _mds(state: list[int]) -> list[int]:
-    circ = params.MDS_MATRIX_CIRC
-    diag = params.MDS_MATRIX_DIAG
-    w = params.WIDTH
-    out = []
-    for r in range(w):
-        acc = diag[r] * state[r]
-        for i in range(w):
-            acc += circ[i] * state[(i + r) % w]
-        out.append(acc % P)
-    return out
+    return [sum(map(operator.mul, row, state)) % P for row in _MDS_ROWS]
 
 
 def _sbox(x: int) -> int:

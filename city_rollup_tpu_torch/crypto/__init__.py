@@ -4,9 +4,9 @@ BTC hash primitives, secp256k1 curve + ECDSA + wallet.
 Counterpart of the reference's ``crypto/``: copies of ``hashes.py``,
 ``secp256k1.py`` and ``felts.py`` (which it packs public keys with) over the port's ``core/`` (host Python), which the
 in-circuit gadgets (``snark/sha256.py``, ``snark/ripemd160.py``,
-``snark/secp_gadgets.py``) are held against. The QHashOut packing
-(``qhashout.py``) and the rest of the reference's ``crypto/`` come with the
-rollup consumers.
+``snark/secp_gadgets.py``) are held against, and of ``qhashout.py`` (the
+QHashOut digest and felt248/felt252 packing the rollup's sighash finalizer
+uses). ``bls12_381.py`` and ``groth16.py`` come with the Groth16 wrap.
 """
 
 from .hashes import (Hash160, Hash256, hash160, hash256, ripemd160, sha256,

@@ -1,0 +1,332 @@
+"""Worker circuit toolbox: build every op/aggregation/dummy/block circuit
+once at startup and dispatch proving jobs by circuit type.
+
+Reference role: city_rollup_circuit/src/worker/toolbox (SURVEY.md §2.10) —
+`CRWorkerToolboxCoreCircuits` builds all circuits up front (deriving every
+fingerprint) and `worker_prove` dispatches on `job_id.circuit_type`.
+
+Round-2 semantics: every proof is real — op circuits verify delta-Merkle
+state updates in-circuit, aggregation nodes recursively verify their
+children's FRI proofs against the family's shared proof shape, and the
+block circuits chain the per-family spans into one
+(old city root -> new city root) claim. See op_circuits.py.
+
+Counterpart of the reference's ``rollup/circuits.py``, on the port's
+prover: every circuit is built for one device (``CircuitToolbox(...,
+device=)``), where its preprocessing and its proofs run. The signature
+wrapper (``with_signatures=True``) comes with the signature slice.
+"""
+
+from __future__ import annotations
+
+import json
+import pickle
+
+from ..core import fri
+from ..snark import CircuitBuilder, CircuitConfig
+from ..snark import prover as snark_prover
+from ..snark import verifier as snark_verifier
+from ..snark.recursion import fingerprint_verifier_data
+from . import op_circuits as oc
+from .job_id import CircuitType
+from .merkle_model import DeltaMerkleProof
+from .treeprover import AggStateTransition
+
+# proving config for rollup circuits (tests shrink FRI + tree heights)
+DEFAULT_CONFIG = CircuitConfig.poseidon_config()
+FAST_TEST_CONFIG = CircuitConfig.poseidon_config(
+    num_challenges=1,
+    fri=fri.FriConfig(rate_bits=3, cap_height=1, proof_of_work_bits=4,
+                      num_query_rounds=4, final_poly_bits=3))
+
+DEFAULT_PARAMS = oc.RollupParams(config=DEFAULT_CONFIG)
+FAST_TEST_PARAMS = oc.RollupParams(
+    config=FAST_TEST_CONFIG, user_tree_height=8, deposit_tree_height=8,
+    withdrawal_tree_height=8)
+
+SHAPE_A_OPS = {
+    "register": oc.make_register_user,
+    "claim": oc.make_claim_l1_deposit,
+    "transfer": oc.make_l2_transfer,
+    "add_withdrawal": oc.make_add_l1_withdrawal,
+}
+SHAPE_B_OPS = {
+    "process_withdrawal": oc.make_process_l1_withdrawal,
+    "add_deposit": oc.make_add_l1_deposit,
+}
+
+OP_NAME_BY_TYPE = {
+    CircuitType.OP_REGISTER_USER: "register",
+    CircuitType.OP_CLAIM_L1_DEPOSIT: "claim",
+    CircuitType.OP_L2_TRANSFER: "transfer",
+    CircuitType.OP_ADD_L1_WITHDRAWAL: "add_withdrawal",
+    CircuitType.OP_PROCESS_L1_WITHDRAWAL: "process_withdrawal",
+    CircuitType.OP_ADD_L1_DEPOSIT: "add_deposit",
+}
+FAMILY_BY_AGG = {
+    CircuitType.AGG_REGISTER_USER: "register",
+    CircuitType.AGG_CLAIM_L1_DEPOSIT: "claim",
+    CircuitType.AGG_L2_TRANSFER: "transfer",
+    CircuitType.AGG_ADD_L1_WITHDRAWAL: "add_withdrawal",
+    CircuitType.AGG_PROCESS_L1_WITHDRAWAL: "process_withdrawal",
+    CircuitType.AGG_ADD_L1_DEPOSIT: "add_deposit",
+}
+FAMILY_BY_DUMMY = {
+    CircuitType.DUMMY_REGISTER_USER: "register",
+    CircuitType.DUMMY_CLAIM_L1_DEPOSIT: "claim",
+    CircuitType.DUMMY_L2_TRANSFER: "transfer",
+    CircuitType.DUMMY_ADD_L1_WITHDRAWAL: "add_withdrawal",
+    CircuitType.DUMMY_PROCESS_L1_WITHDRAWAL: "process_withdrawal",
+    CircuitType.DUMMY_ADD_L1_DEPOSIT: "add_deposit",
+}
+SHAPE_BY_FAMILY = {"register": "A", "claim": "A", "transfer": "A",
+                   "add_withdrawal": "A", "process_withdrawal": "B",
+                   "add_deposit": "B"}
+
+
+def transition_pis(t: AggStateTransition) -> list[int]:
+    return [int(x) for x in t.transition_hash()]
+
+
+class CircuitToolbox:
+    """Builds both shape families + block circuits; proves/verifies by
+    circuit type. Build order mirrors the reference's explicit dependency
+    chain (circuits.rs:87-95): leaf ops -> family aggregators -> block
+    aggregators -> block state transition."""
+
+    def __init__(self, params: oc.RollupParams | None = None,
+                 with_signatures: bool = False, device=None):
+        """`device`: where every circuit's preprocessing and proofs run
+        (CUDA unless ``device="cpu"``). `with_signatures=True` (the
+        ZK-signature wrapper threaded into the op circuits, the
+        reference's build order zk_signature_wrapper -> ops,
+        circuits.rs:87-95) needs ``rollup/zk_signature.py``, which the
+        port does not have yet."""
+        if with_signatures:
+            raise NotImplementedError(
+                "with_signatures needs rollup/zk_signature.py, which comes "
+                "with the port's signature slice (ROADMAP A12b)")
+        self.params = params or DEFAULT_PARAMS
+        self.device = device
+        self._family_a = None
+        self._family_b = None
+        self._block = None
+
+    # -- lazy family/block builds ------------------------------------------------
+    @property
+    def family_a(self) -> oc.ShapeFamily:
+        if self._family_a is None:
+            self._family_a = oc.build_shape_family(self.params, SHAPE_A_OPS,
+                                                   with_events=False,
+                                                   device=self.device)
+        return self._family_a
+
+    @property
+    def family_b(self) -> oc.ShapeFamily:
+        if self._family_b is None:
+            self._family_b = oc.build_shape_family(self.params, SHAPE_B_OPS,
+                                                   with_events=True,
+                                                   device=self.device)
+        return self._family_b
+
+    def _family_for(self, name: str) -> oc.ShapeFamily:
+        return self.family_a if SHAPE_BY_FAMILY[name] == "A" else \
+            self.family_b
+
+    def family_fps(self, name: str) -> oc.FamilyFps:
+        fam = self._family_for(name)
+        return oc.FamilyFps(
+            leaf=tuple(fingerprint_verifier_data(
+                fam.leaves[name].data.verifier)),
+            agg=tuple(fingerprint_verifier_data(fam.agg.data.verifier)),
+            dummy=tuple(fingerprint_verifier_data(fam.dummy.data.verifier)))
+
+    def allowed_root(self, name: str) -> tuple:
+        return self.family_fps(name).allowed_root
+
+    @property
+    def block(self) -> dict:
+        """{'part1','part2','transition'} -> (data, targets)."""
+        if self._block is None:
+            fps = {n: self.family_fps(n) for n in SHAPE_BY_FAMILY}
+            b1 = CircuitBuilder(self.params.config)
+            t1 = oc.make_block_part1(b1, self.family_a.common, fps,
+                                     self.params)
+            d1 = b1.build(device=self.device)
+            b2 = CircuitBuilder(self.params.config)
+            t2 = oc.make_block_part2(b2, self.family_a.common,
+                                     self.family_b.common, fps, self.params)
+            d2 = b2.build(device=self.device)
+            b3 = CircuitBuilder(self.params.config)
+            t3 = oc.make_block_transition(b3, d1, d2, self.params)
+            d3 = b3.build(device=self.device)
+            self._block = {"part1": (d1, t1, b1), "part2": (d2, t2, b2),
+                           "transition": (d3, t3, b3)}
+        return self._block
+
+    def prewarm(self):
+        self.family_a, self.family_b, self.block
+
+    # -- proving -----------------------------------------------------------------
+    # Each op/dummy/agg job has a `prepare_*` form returning (CircuitData,
+    # PartialWitness) so the worker can group same-circuit jobs and prove
+    # them as ONE batched device call (snark_prover.prove_batch — SURVEY.md
+    # §2.11 "levels batched").
+
+    def prepare_op(self, name: str, witness: dict):
+        fam = self._family_for(name)
+        built = fam.leaves[name]
+        pw = built.data._builder.partial_witness()
+        wit = dict(witness)
+        wit.setdefault("allowed_root", self.allowed_root(name))
+        built.setter(pw, wit)
+        return built.data, pw
+
+    def prove_op(self, name: str, witness: dict) -> snark_prover.Proof:
+        return snark_prover.prove(*self.prepare_op(name, witness))
+
+    def prepare_dummy(self, name: str, state_root):
+        fam = self._family_for(name)
+        pw = fam.dummy.data._builder.partial_witness()
+        fam.dummy.setter(pw, {"state_root": state_root,
+                              "allowed_root": self.allowed_root(name)})
+        return fam.dummy.data, pw
+
+    def prove_dummy(self, name: str, state_root) -> snark_prover.Proof:
+        return snark_prover.prove(*self.prepare_dummy(name, state_root))
+
+    def prepare_agg(self, name: str, children: list):
+        """children: two (proof, kind, (start, end)) with kind in
+        {'leaf','agg','dummy'}."""
+        fam = self._family_for(name)
+        vd_by_kind = {"leaf": fam.leaves[name].data.verifier,
+                      "agg": fam.agg.data.verifier,
+                      "dummy": fam.dummy.data.verifier}
+        pw = fam.agg.data._builder.partial_witness()
+        oc.set_tree_agg_witness(
+            pw, fam.agg.targets, self.family_fps(name).as_dict(),
+            [(proof, vd_by_kind[kind], kind, span)
+             for proof, kind, span in children])
+        return fam.agg.data, pw
+
+    def prove_agg(self, name: str, children: list) -> snark_prover.Proof:
+        return snark_prover.prove(*self.prepare_agg(name, children))
+
+    def prove_block_part1(self, proofs: dict, kinds: dict,
+                          u_roots: list, d_roots: list) -> snark_prover.Proof:
+        """proofs/kinds: per family name in (register, claim, transfer);
+        u_roots = [u_a..u_d], d_roots = [d_a, d_b]."""
+        data, targets, builder = self.block["part1"]
+        pw = builder.partial_witness()
+        fam = self.family_a
+        for name in ("register", "claim", "transfer"):
+            fps = self.family_fps(name)
+            vd = {"leaf": fam.leaves[name].data.verifier,
+                  "agg": fam.agg.data.verifier,
+                  "dummy": fam.dummy.data.verifier}[kinds[name]]
+            oc.set_child_witness(
+                pw, targets["slots"][name], fps.enum(), proofs[name], vd,
+                fingerprint_verifier_data(vd))
+        for ts, root in zip(targets["u"], u_roots):
+            for t, v in zip(ts, root):
+                pw.set(t, int(v))
+        for ts, root in zip(targets["d"], d_roots):
+            for t, v in zip(ts, root):
+                pw.set(t, int(v))
+        return snark_prover.prove(data, pw)
+
+    def prove_block_part2(self, proofs: dict, kinds: dict, u_roots: list,
+                          w_roots: list, d_roots: list) -> snark_prover.Proof:
+        data, targets, builder = self.block["part2"]
+        pw = builder.partial_witness()
+        for name in ("add_withdrawal", "process_withdrawal", "add_deposit"):
+            fam = self._family_for(name)
+            fps = self.family_fps(name)
+            vd = {"leaf": fam.leaves[name].data.verifier,
+                  "agg": fam.agg.data.verifier,
+                  "dummy": fam.dummy.data.verifier}[kinds[name]]
+            oc.set_child_witness(
+                pw, targets["slots"][name], fps.enum(), proofs[name], vd,
+                fingerprint_verifier_data(vd))
+        for ts, root in zip(targets["u"], u_roots):
+            for t, v in zip(ts, root):
+                pw.set(t, int(v))
+        for ts, root in zip(targets["w"], w_roots):
+            for t, v in zip(ts, root):
+                pw.set(t, int(v))
+        for ts, root in zip(targets["d"], d_roots):
+            for t, v in zip(ts, root):
+                pw.set(t, int(v))
+        return snark_prover.prove(data, pw)
+
+    def prove_block_transition(self, part1_proof, part2_proof, u_roots,
+                               w_roots, d_roots) -> snark_prover.Proof:
+        from ..snark import recursion
+        data, targets, builder = self.block["transition"]
+        pw = builder.partial_witness()
+        recursion.set_proof_witness(pw, targets["pt1"], part1_proof)
+        recursion.set_proof_witness(pw, targets["pt2"], part2_proof)
+        for group, roots in (("u", u_roots), ("w", w_roots), ("d", d_roots)):
+            for ts, root in zip(targets[group], roots):
+                for t, v in zip(ts, root):
+                    pw.set(t, int(v))
+        return snark_prover.prove(data, pw)
+
+    # -- verification -------------------------------------------------------------
+    def verify_family_proof(self, name: str, proof) -> bool:
+        """Verify a leaf/agg/dummy proof of the family's shared shape: the
+        proof's PI[0:4] must be the family's allowed root, and verification
+        is attempted against each admissible verifier data."""
+        fam = self._family_for(name)
+        if tuple(proof.public_inputs[0:4]) != \
+                tuple(self.allowed_root(name)):
+            return False
+        for built in (fam.leaves[name], fam.agg, fam.dummy):
+            if snark_verifier.verify(proof, fam.common, built.data.verifier):
+                return True
+        return False
+
+    def verify_block_proof(self, which: str, proof) -> bool:
+        data = self.block[which][0]
+        return snark_verifier.verify(proof, data.common, data.verifier)
+
+
+# -- proof/witness (de)serialization for the proof store ----------------------
+
+def delta_to_dict(d: DeltaMerkleProof) -> dict:
+    return {"old_root": list(d.old_root), "old_value": list(d.old_value),
+            "new_root": list(d.new_root), "new_value": list(d.new_value),
+            "index": d.index, "siblings": [list(s) for s in d.siblings]}
+
+
+def delta_from_dict(raw: dict) -> DeltaMerkleProof:
+    return DeltaMerkleProof(
+        old_root=tuple(raw["old_root"]), old_value=tuple(raw["old_value"]),
+        new_root=tuple(raw["new_root"]), new_value=tuple(raw["new_value"]),
+        index=raw["index"], siblings=[tuple(s) for s in raw["siblings"]])
+
+
+def encode_witness(payload: dict) -> bytes:
+    def enc(v):
+        if isinstance(v, DeltaMerkleProof):
+            return {"__delta__": delta_to_dict(v)}
+        if isinstance(v, tuple):
+            return list(v)
+        return v
+    return json.dumps({k: enc(v) for k, v in payload.items()}).encode()
+
+
+def decode_witness(raw: bytes) -> dict:
+    def dec(v):
+        if isinstance(v, dict) and "__delta__" in v:
+            return delta_from_dict(v["__delta__"])
+        return v
+    return {k: dec(v) for k, v in json.loads(raw.decode()).items()}
+
+
+def encode_proof(proof: snark_prover.Proof) -> bytes:
+    return pickle.dumps(proof)
+
+
+def decode_proof(raw: bytes) -> snark_prover.Proof:
+    return pickle.loads(raw)

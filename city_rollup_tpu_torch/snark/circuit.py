@@ -18,7 +18,7 @@ wires; more are Poseidon-hashed in-circuit and the digest routed there.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -36,14 +36,15 @@ P = gl64.P
 # Targets
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True, order=True)
-class Wire:
+# Targets are named tuples: the witness scheduler and the union-find hash
+# and compare millions of them, which a tuple does in C. The hash of each
+# is the reference's (its dataclasses hash the tuple of their fields).
+class Wire(NamedTuple):
     row: int
     col: int
 
 
-@dataclasses.dataclass(frozen=True, order=True)
-class VirtualTarget:
+class VirtualTarget(NamedTuple):
     idx: int
 
 
@@ -520,6 +521,32 @@ class CircuitBuilder:
         ComparisonGate's balance-check role, SURVEY.md §2.2)."""
         self.range_check(self.sub(b, a), num_bits)
 
+    def _copy_classes(self, R: int, n: int) -> tuple[np.ndarray, list]:
+        """((R, n) class index of each routed wire, -1 where the wire was
+        never joined; the root target of each class). Only the targets the
+        union-find joined are walked, not all R x n wires."""
+        find = self.uf.find
+        class_roots: list = []
+        index: dict = {}
+        wire_class = np.full((R, n), -1, dtype=np.int64)
+        cols, rows, ids = [], [], []
+        for x in list(self.uf.parent):
+            root = find(x)
+            k = index.get(root)
+            if k is None:
+                k = index[root] = len(class_roots)
+                class_roots.append(root)
+                if type(root) is Wire and root.col < R and root.row < n:
+                    cols.append(root.col)
+                    rows.append(root.row)
+                    ids.append(k)
+            if type(x) is Wire and x.col < R and x.row < n:
+                cols.append(x.col)
+                rows.append(x.row)
+                ids.append(k)
+        wire_class[cols, rows] = ids
+        return wire_class, class_roots
+
     # -- build ------------------------------------------------------------------
     def build(self, min_log_n: int | None = None,
               device=None) -> CircuitData:
@@ -609,25 +636,24 @@ class CircuitBuilder:
         for i in range(R):
             pos_val[i] = gl64.np_mul(subgroup, np.uint64(k_is[i]))
         sigmas = pos_val.copy()            # identity permutation by default
-        # gather cycles: class representative -> member wires
-        classes: dict = {}
-        class_index: dict = {}
-        wire_class = np.empty((R, n), dtype=np.int64)
-        for r in range(n):
-            for c in range(R):
-                w = Wire(r, c)
-                root = self.uf.find(w)
-                classes.setdefault(root, []).append(w)
-                wire_class[c, r] = class_index.setdefault(root,
-                                                          len(class_index))
-        # include virtual targets' classes (they may join wire classes) —
-        # they don't occupy trace positions, so cycles use wires only.
-        for members in classes.values():
-            if len(members) < 2:
-                continue
-            for j, w in enumerate(members):
-                nxt = members[(j + 1) % len(members)]
-                sigmas[w.col, w.row] = pos_val[nxt.col, nxt.row]
+        # copy classes over the routed wires: a wire the union-find never
+        # joined is a class of its own (class -1, identity sigma); every
+        # other wire takes its class's index into `class_roots`. A class's
+        # cycle runs through its wires in row-major order, as the
+        # reference's row-by-row scan collects them (virtual targets join
+        # classes but hold no trace position).
+        wire_class, class_roots = self._copy_classes(R, n)
+        joined = np.flatnonzero(wire_class.T.reshape(-1) >= 0)  # row-major
+        cls = wire_class.T.reshape(-1)[joined]
+        order = np.argsort(cls, kind="stable")
+        pos, cls = joined[order], cls[order]
+        first = np.r_[0, np.flatnonzero(np.diff(cls)) + 1]
+        size = np.diff(np.r_[first, len(cls)])
+        nxt = np.arange(len(pos)) + 1
+        nxt[first + size - 1] = first            # each cycle closes
+        keep = np.repeat(size >= 2, size)
+        src, dst = pos[keep], pos[nxt[keep]]
+        sigmas[src % R, src // R] = pos_val[dst % R, dst // R]
 
         # preprocessing polynomials: [selectors, constants, sigmas].
         # NTTs/LDE/Merkle commitment are deferred (ProverData._preprocess)
@@ -639,7 +665,7 @@ class CircuitBuilder:
                             pi_targets=list(self.public_inputs),
                             log_n=log_n, rate_bits=cfg.rate_bits,
                             cap_height=cfg.fri.cap_height,
-                            wire_classes=(wire_class, list(class_index)),
+                            wire_classes=(wire_class, class_roots),
                             device=device)
         data = CircuitData(common=common, prover=prover)
         data._builder = self       # witness generation needs uf + rows
@@ -766,9 +792,11 @@ def generate_witness(data: CircuitData, pw: PartialWitness) -> np.ndarray:
     R = cfg.num_routed_wires
     wire_class, class_roots = data.prover.wire_classes
     mat = np.zeros((W, n), dtype=np.uint64)
-    mat[:R] = np.array([vals.get(rt, 0) for rt in class_roots],
-                       dtype=np.uint64)[wire_class]
+    class_vals = np.array([vals.get(rt, 0) for rt in class_roots] + [0],
+                          dtype=np.uint64)
+    mat[:R] = class_vals[wire_class]          # class -1: the zero at the end
     for t, v in vals.items():
-        if type(t) is Wire and R <= t.col < W and t.row < n:
+        if type(t) is Wire and t.col < W and t.row < n and (
+                t.col >= R or wire_class[t.col, t.row] < 0):
             mat[t.col, t.row] = v
     return mat

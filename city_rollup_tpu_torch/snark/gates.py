@@ -75,6 +75,7 @@ class ArithmeticGate(Gate):
         self._num_ops = num_ops
         self.key = f"arithmetic<{num_ops}>"
         self.num_constraints = num_ops
+        self._sub_generators = None
 
     def num_ops(self) -> int:
         return self._num_ops
@@ -98,14 +99,18 @@ class ArithmeticGate(Gate):
             set_wire(4 * t + 3, (c0 * a * b + c1 * d) % P)
 
     def sub_generators(self):
-        def op_gen(t):
-            def fn(row, get, set_wire, constants=None, _t=t):
-                c0, c1 = constants[0], constants[1]
-                a, b, d = get(4 * _t), get(4 * _t + 1), get(4 * _t + 2)
-                set_wire(4 * _t + 3, (c0 * a * b + c1 * d) % P)
-            return fn
-        return [([4 * t, 4 * t + 1, 4 * t + 2], op_gen(t))
-                for t in range(self._num_ops)]
+        # the same for every row of this gate: made once
+        if self._sub_generators is None:
+            def op_gen(t):
+                def fn(row, get, set_wire, constants=None, _t=t):
+                    c0, c1 = constants[0], constants[1]
+                    a, b, d = get(4 * _t), get(4 * _t + 1), get(4 * _t + 2)
+                    set_wire(4 * _t + 3, (c0 * a * b + c1 * d) % P)
+                return fn
+            self._sub_generators = [([4 * t, 4 * t + 1, 4 * t + 2],
+                                     op_gen(t))
+                                    for t in range(self._num_ops)]
+        return self._sub_generators
 
 
 class ConstantGate(Gate):
