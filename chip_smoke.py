@@ -75,7 +75,23 @@ In order, it:
      them, every job's proof through the host verifier (in worker
      processes), and a transfer aggregation over a child proof with one
      wire opening changed: no witness completes, and check_witness names
-     the gates a forged one breaks;
+     the gates a forged one breaks. Block 2 carries its L1 transaction,
+     which spends the dev covenant (btc.dev_spend_cfg()): the sighash
+     toolbox of its one shape (the SHA256 accelerator, the shape circuit,
+     the minified shape, the whitelist wrapper, the final GL over the
+     block transition) and the signature circuits (the ZK wrapper, a
+     transfer op that verifies it) are built after the rollup's, held
+     against GOLDEN_SIGHASH_SHAPES (the reference's host build) and in the
+     kernel checks; the worker proves the chain (introspection, wrapper,
+     final GL) before the block's completion notification, the final GL's
+     public inputs are checked against the host's felt248 of the old root
+     and felt252 of the sighash, every proof of the chain host-verified,
+     and a final GL with a wrong spend index refused; then a wallet signs
+     a transfer and a withdrawal, the signed transfer op proves one
+     signature and verifies, and gives no witness when the sender's leaf
+     holds another key. The sighash path's launches (its circuits'
+     preprocessing, its proves, the signatures) are counted apart from
+     the rollup path's;
  10. times each kernel, its plain version and its bound, and the whole
      coset LDE of one streamed slab and of the one-shot input against its
      byte bound, and K4, K1 and K2 at the prove and recursion paths'
@@ -84,7 +100,8 @@ In order, it:
      the intermediate's write and read), and at the rollup path's;
 and prints one JSON line of the prove path, one of the recursion path, one
 of the rollup path (per job: circuit, rows, log_n, wall time, witness
-share, peak device memory; the builds, blocks and verifies), one of the
+share, peak device memory; the builds, blocks and verifies; the sighash
+circuits and jobs; the signatures), one of the
 LDE, prove-path, recursion-path and rollup-path kernel times, one of
 kernels,
 then as its last line
@@ -606,9 +623,10 @@ GOLDEN_ROLLUP_SHAPES = {
               "sel_sigma_sha256": "2d652564bcfdbfc0e8183dea98eaed74"
                                   "0e7b7069b4a375b099165add9610068a"},
 }
-# The rollup path proves its circuits as the prove path does; K5 (the
-# streamed commit) and the tail kernel (past 2^13 a row) stay at 0.
+# The rollup and sighash paths prove their circuits as the prove path does;
+# K5 (the streamed commit) and the tail kernel (past 2^13 a row) stay at 0.
 ROLLUP_KERNELS = PROVE_KERNELS
+SIGHASH_KERNELS = PROVE_KERNELS
 
 
 def block2_requests(om):
@@ -722,15 +740,17 @@ class ProveRecorder:
     """While entered, wraps the port's prover.prove_batch (which prove
     calls) so that each call made by the worker is recorded: circuit,
     batch, wall time on the host clock (the device synchronised at both
-    ends), its steps (prove_batch's on_step), peak device memory and what
-    was held before it. `keep` (a CircuitData) also keeps the last wire
-    matrix generated for that circuit."""
+    ends), its steps (prove_batch's on_step), peak device memory, what
+    was held before it and its proofs; with `launches` (the kernels'
+    launch counts), the launches it made. `keep` (a CircuitData) also
+    keeps the last wire matrix generated for that circuit."""
 
-    def __init__(self, prover_mod, circuit_mod, keep=None):
+    def __init__(self, prover_mod, circuit_mod, keep=None, launches=None):
         self.prover = prover_mod
         self.circuit = circuit_mod
         self.keep = keep
         self.kept = None
+        self.launches = launches
         self.calls = []
 
     def __enter__(self):
@@ -747,6 +767,7 @@ class ProveRecorder:
             timer = StepTimer()
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated() / 2**30
+            before = dict(self.launches()) if self.launches else {}
             timer.start()
             t0 = timer.last
             proofs = self._batch(data, pws, on_step=timer, **kw)
@@ -755,7 +776,10 @@ class ProveRecorder:
                 "data": data, "batch": len(pws),
                 "wall_s": time.perf_counter() - t0, "steps_s": timer.steps,
                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                "held_before_gib": held})
+                "held_before_gib": held, "proofs": proofs,
+                "launches": {k: v - before[k]
+                             for k, v in self.launches().items()}
+                if self.launches else {}})
             return proofs
 
         self.prover.prove_batch = prove_batch
@@ -768,29 +792,175 @@ class ProveRecorder:
 
 
 
+class BuildRecorder:
+    """While entered, records each CircuitBuilder.build of the port: the
+    circuit and the host seconds from its builder's creation to the end of
+    its build (the layout, the preprocessing of the inner circuits whose
+    verifier data it holds as constants, the copy classes and sigmas)."""
+
+    def __init__(self, circuit_mod):
+        self.cls = circuit_mod.CircuitBuilder
+        self.builds = []
+
+    def __enter__(self):
+        cls, builds = self.cls, self.builds
+        self._init, self._build = cls.__init__, cls.build
+        init, build = self._init, self._build
+
+        def __init__(b, *args, **kw):
+            b._made_at = time.perf_counter()
+            init(b, *args, **kw)
+
+        def build_(b, *args, **kw):
+            data = build(b, *args, **kw)
+            torch.cuda.synchronize()
+            builds.append({"data": data,
+                           "build_s": time.perf_counter() - b._made_at})
+            return data
+
+        cls.__init__, cls.build = __init__, build_
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__, self.cls.build = self._init, self._build
+
+
+# --- the block's L1 binding and user signatures (rollup/sighash_*.py,
+# zk_signature.py, wallet.py) ----------------------------------------------
+# Block 2 spends the dev covenant (btc.dev_spend_cfg(), btc.DEV_SCRIPT_BODY:
+# the reference's development deployment, `cli sighash-corpus
+# --dev-covenant`) from a previous block transaction holding this balance:
+# one input, no deposits, no withdrawals, so one shape, gid (0, 0, 0, 0, 0).
+SIGHASH_GID = (0, 0, 0, 0, 0)
+COVENANT_BALANCE = 5_000_000
+# The circuits SigHashToolbox builds for one shape, in build order, then
+# the signature circuits (the ZK signature's inner circuit and wrapper, the
+# transfer op that verifies the wrapper's proof).
+SIGHASH_BUILDS = ("accelerator", "shape", "probe minifier", "minified",
+                  "wrapper", "final GL", "zk inner", "zk wrapper",
+                  "signed transfer")
+SIGNER_SK = [11, 22, 33, 44]
+OTHER_SK = [5, 6, 7, 8]
+# any felts stand for a standalone op's allowed root (as in the tests)
+SIGNED_ALLOWED_ROOT = (11, 12, 13, 14)
+
+# The reference package's host build at DEFAULT_PARAMS.config
+# (poseidon_config(), FriConfig()) of the dev covenant's shape gid
+# (0, 0, 0, 0, 0): degree, rows, gate keys and sha256 of the columns. The
+# circuits after the accelerator hold an inner circuit's verifier data as
+# constants, which the reference derives only through its jnp
+# preprocessing (too slow on a host); its host build took random stand-ins
+# there, so they are pinned by their selector and sigma columns, which
+# those values do not change; the accelerator, with no such constant, by
+# all its columns. The final GL verifies the block transition, a circuit
+# of the rollup toolbox: the reference's build of it took a stand-in of
+# the transition's common data (16 public inputs, 2^16, its gates as the
+# port's toolbox builds them on the card, the parts it verifies being
+# held by GOLDEN_ROLLUP_SHAPES).
+GOLDEN_SIGHASH_SHAPES = {
+    "accelerator": {
+        "log_n": 17, "rows": 68512,
+        "gates": ["constant<2>", "base_sum<8>", "arithmetic<8>",
+                  "base_sum<16>", "base_sum<32>", "base_sum<2>",
+                  "base_sum<3>", "base_sum<1>", "poseidon", "public_input"],
+        "const_sigma_sha256": "f7ee2fed9e14b23df314cd7431b7c3d7"
+                              "472140e5de08b364b733dd20ce85831b"},
+    "shape": {
+        "log_n": 16, "rows": 35964,
+        "gates": ["constant<2>", "base_sum<8>", "arithmetic<8>", "poseidon",
+                  "reducing_ext<13>", "base_sum<16>", "reducing<26>",
+                  "base_sum<32>", "base_sum<2>", "base_sum<1>",
+                  "base_sum<5>", "public_input"],
+        "sel_sigma_sha256": "d1769408708e02bdfb54157cfcbc4907"
+                            "834992cd0ddf0ec1e574546b24928670"},
+    "minified": {
+        "log_n": 15, "rows": 27099,
+        "gates": ["arithmetic<8>", "base_sum<16>", "constant<2>", "poseidon",
+                  "public_input", "reducing<26>", "reducing_ext<13>"],
+        "sel_sigma_sha256": "c7480e711a55375c8955f3b468b2706f"
+                            "710e130343238046f660055b78bcb815"},
+    "wrapper": {
+        "log_n": 15, "rows": 24766,
+        "gates": ["constant<2>", "poseidon", "arithmetic<8>",
+                  "reducing_ext<13>", "base_sum<16>", "reducing<26>",
+                  "public_input"],
+        "sel_sigma_sha256": "e7172697db15311123b07b084d3cd5b0"
+                            "55f12f24f1c555136cc462e06d94828d"},
+    "final GL": {
+        "log_n": 16, "rows": 51583,
+        "gates": ["constant<2>", "poseidon", "arithmetic<8>",
+                  "reducing_ext<13>", "base_sum<16>", "reducing<26>",
+                  "public_input"],
+        "sel_sigma_sha256": "45eccd4d8f125b53ddfc9f7836bdb0c5"
+                            "4b82c6af7817c17209c53877c81467a5"},
+}
+
+
+def shape_of(data) -> dict:
+    """A built circuit's rows, degree, preprocessed width S and gate keys."""
+    return {"rows": circuit_rows(data), "log_n": data.common.log_n,
+            "S": data.prover.const_sigma_values.shape[0],
+            "gates": [g.key for g in data.common.gates]}
+
+
+def sighash_shape_differences(datas: dict) -> list[str]:
+    """What the sighash circuits (`datas`: name -> CircuitData) do not
+    reproduce of GOLDEN_SIGHASH_SHAPES (empty when all of it matches)."""
+    bad = []
+    for name, want in GOLDEN_SIGHASH_SHAPES.items():
+        d = datas[name]
+        got = {"log_n": d.common.log_n, "rows": circuit_rows(d),
+               "gates": [g.key for g in d.common.gates]}
+        if "const_sigma_sha256" in want:
+            got["const_sigma_sha256"] = sha256_u64(
+                d.prover.const_sigma_values)
+        else:
+            got["sel_sigma_sha256"] = sha256_u64(sel_sigma_values(d))
+        bad += [f"{name} {k}: {got[k]} != {w}" for k, w in want.items()
+                if got[k] != w]
+    return bad
+
+
 def rollup_phase(dev, all_launches, zero_launches):
     """The rollup's block pipeline at DEFAULT_PARAMS, on the card: the
-    toolbox's circuits built and held against GOLDEN_ROLLUP_SHAPES, K1/K2,
-    K3 and K4 held against their plain versions at its shapes, then two
-    blocks proved through the worker and finalized, every job's proof
-    host-verified, and an aggregation over a changed child proof refused.
-    Returns (the rollup JSON line, kernel times at its shapes, its
-    launches: the circuits' preprocessing and both blocks, counted from 0
-    around each)."""
+    toolbox's circuits built and held against GOLDEN_ROLLUP_SHAPES, the
+    sighash toolbox of block 2's shape and the signature circuits built
+    and held against GOLDEN_SIGHASH_SHAPES, K1/K2, K3 and K4 held against
+    their plain versions at all their shapes, then two blocks proved
+    through the worker and finalized, block 2 with its L1 transaction (its
+    sighash chain: introspection, wrapper, final GL), every job's proof
+    host-verified, an aggregation over a changed child proof and a final
+    GL with a wrong spend index refused; then two actions signed by a
+    wallet and a transfer op that verifies a signature in-circuit proved,
+    and refused under another key. Returns (the rollup JSON line, kernel
+    times at its shapes, the rollup path's launches: the circuits'
+    preprocessing and both blocks' rollup jobs, counted from 0 around
+    each; the sighash path's: its circuits' preprocessing, block 2's
+    sighash chain and the signatures)."""
+    import dataclasses
     from city_rollup_tpu_torch import cli
     from city_rollup_tpu_torch.core import cuda_ntt as cn
     from city_rollup_tpu_torch.core import cuda_poseidon as cp
     from city_rollup_tpu_torch.core import ntt as tn
+    from city_rollup_tpu_torch.crypto import felts as feltenc
+    from city_rollup_tpu_torch.crypto.qhashout import QHashOut
+    from city_rollup_tpu_torch.rollup import btc
+    from city_rollup_tpu_torch.rollup import op_circuits as oc
     from city_rollup_tpu_torch.rollup import orchestrator as om
     from city_rollup_tpu_torch.rollup.circuits import (
         DEFAULT_PARAMS, FAMILY_BY_AGG, FAMILY_BY_DUMMY, OP_NAME_BY_TYPE,
-        SHAPE_BY_FAMILY, CircuitToolbox, decode_proof, decode_witness)
+        SHAPE_BY_FAMILY, CircuitToolbox, decode_proof, decode_witness,
+        encode_proof)
     from city_rollup_tpu_torch.rollup.city_store import CityStore
     from city_rollup_tpu_torch.rollup.job_id import CircuitType, JobID
     from city_rollup_tpu_torch.rollup.proof_store import MemoryProofStore
-    from city_rollup_tpu_torch.rollup.queues import QueueHub
+    from city_rollup_tpu_torch.rollup.queues import Q_NOTIFICATIONS, QueueHub
+    from city_rollup_tpu_torch.rollup.sighash_toolbox import SigHashToolbox
+    from city_rollup_tpu_torch.rollup.wallet import CityMemoryWallet
     from city_rollup_tpu_torch.rollup.worker import Worker
-    from city_rollup_tpu_torch.snark import circuit, prover
+    from city_rollup_tpu_torch.rollup.zk_signature import (
+        ZKSignatureWrapperCircuit, derive_public_key)
+    from city_rollup_tpu_torch.snark import circuit, prover, verifier
     from city_rollup_tpu_torch.snark.debug import check_witness
 
     params = DEFAULT_PARAMS
@@ -816,9 +986,12 @@ def rollup_phase(dev, all_launches, zero_launches):
                 x[j, 64:128] = x[0, j]
         return x
 
-    def add_counts():
+    def add_counts(into=counted, less=None):
+        """Add the launches since the counts were set to 0, less those
+        of `less` (a path's own), to `into`."""
+        less = less or {}
         for k, v in all_launches().items():
-            counted[k] = counted.get(k, 0) + v
+            into[k] = into.get(k, 0) + v - less.get(k, 0)
 
     # --- build: the families on the host, their preprocessing (the
     # fingerprints), the block circuits (the parts' preprocessing inside:
@@ -861,6 +1034,62 @@ def rollup_phase(dev, all_launches, zero_launches):
                              f"reference's: {wrong[:6]}")
     log("check the rollup circuits (families A and B, block parts 1 and 2) "
         "equal GOLDEN_ROLLUP_SHAPES")
+
+    # --- the sighash toolbox of block 2's shape (the dev covenant, the
+    # transition's verifier data a constant of its final GL) and the
+    # signature circuits, built on the card: the sighash path's first
+    # launches (their preprocessing) ------------------------------------------
+    spend_cfg, body = btc.dev_spend_cfg(), btc.DEV_SCRIPT_BODY
+    gid = btc.SigHashGadgetId(*SIGHASH_GID)
+    sig_counted = {}
+    zero_launches()
+    with BuildRecorder(circuit) as brec:
+        t0 = time.perf_counter()
+        sht = SigHashToolbox(cfg, spend_cfg, body, [gid],
+                             toolbox.block["transition"][0], device=dev)
+        torch.cuda.synchronize()
+        build_s["sighash toolbox"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zkw = ZKSignatureWrapperCircuit.build(cfg, device=dev)
+        signed_params = dataclasses.replace(params, sig_wrapper=zkw.data)
+        sb = circuit.CircuitBuilder(cfg)
+        _, signed_setter = oc.make_l2_transfer(sb, signed_params)
+        signed_op = sb.build(device=dev)
+        signed_op.verifier
+        torch.cuda.synchronize()
+        build_s["signature circuits"] = time.perf_counter() - t0
+    add_counts(sig_counted)
+    shape_sht = sht.shape_for(gid.to_felt())
+    sig_datas = dict(zip(SIGHASH_BUILDS, [b["data"] for b in brec.builds]))
+    for name, data in [("accelerator", shape_sht.circuit.accel.data),
+                       ("shape", shape_sht.circuit.data),
+                       ("minified", shape_sht.minifier.data),
+                       ("wrapper", sht.wrapper.data),
+                       ("final GL", sht.final_gl.data),
+                       ("zk inner", zkw.inner.data),
+                       ("zk wrapper", zkw.data),
+                       ("signed transfer", signed_op)]:
+        if sig_datas.get(name) is not data:
+            raise AssertionError(f"the builds are not {SIGHASH_BUILDS}")
+    sig_shapes = {}
+    for name, b in zip(SIGHASH_BUILDS, brec.builds):
+        sig_shapes[name] = dict(shape_of(b["data"]), build_s=b["build_s"])
+        log(f"sighash circuit {name}: {sig_shapes[name]['rows']} rows, "
+            f"log_n {sig_shapes[name]['log_n']}, S = "
+            f"{sig_shapes[name]['S']}, gates {sig_shapes[name]['gates']}, "
+            f"built in {b['build_s']:.3f} s")
+    log(f"phase sighash build: toolbox {build_s['sighash toolbox']:.3f} s, "
+        f"signature circuits {build_s['signature circuits']:.3f} s; the "
+        f"transition's gates "
+        f"{shape_of(toolbox.block['transition'][0])['gates']}")
+    wrong = sighash_shape_differences(sig_datas)
+    if wrong:
+        raise AssertionError(f"sighash circuits differ from the "
+                             f"reference's: {wrong[:6]}")
+    log("check the sighash circuits (accelerator, shape, minified shape, "
+        "wrapper, final GL) equal GOLDEN_SIGHASH_SHAPES")
+    sighash_ids = {id(sig_datas[n]) for n in SIGHASH_BUILDS[:6]}
+    sighash_name = {id(d): n for n, d in sig_datas.items()}
 
     # --- K1/K2, K3, K4 against their plain versions at this path's shapes:
     # every committed matrix's intt and coset LDE (wires, Z and partial
@@ -917,8 +1146,9 @@ def rollup_phase(dev, all_launches, zero_launches):
         plain_s.append(time.perf_counter() - tp)
 
     by_log_n = {}
-    for name, sh in shapes.items():
-        by_log_n.setdefault(sh["log_n"], set()).add(sh["S"])
+    for name, sh in list(shapes.items()) + list(sig_shapes.items()):
+        if name != "probe minifier":        # built, never proved
+            by_log_n.setdefault(sh["log_n"], set()).add(sh["S"])
     for log_n, s_widths in sorted(by_log_n.items()):
         for rows in sorted(widths | s_widths):
             check_ntt(log_n, rows, "intt", "(rollup)")
@@ -972,26 +1202,89 @@ def rollup_phase(dev, all_launches, zero_launches):
                 f"held)")
         return out
 
-    def verify_block(store, jobs):
-        """Every job's proof through the port's host verifier, the jobs
-        spread over worker processes; returns the seconds of each."""
+    sighash_ct = {CircuitType.SIGHASH_INTROSPECTION: "minified",
+                  CircuitType.SIGHASH_WRAPPER: "wrapper",
+                  CircuitType.SIGHASH_FINAL_GL: "final GL"}
+
+    def verify_block(store, jobs, extra=()):
+        """Every job's proof, and the (circuit name, proof) pairs of
+        `extra`, through the port's host verifier, spread over worker
+        processes; returns the seconds of each."""
         items = []
         for job, _ in jobs:
             proof = decode_proof(store.get_proof(job.output_proof_id()))
             if holds_tensor(proof):
                 raise AssertionError("a stored proof holds a torch tensor")
-            items.append((CircuitType(job.circuit_type), proof))
+            ct = CircuitType(job.circuit_type)
+            items.append((ct.name, sighash_ct.get(ct), ct, proof))
+        items += [(name, name, None, proof) for name, proof in extra]
 
         def check(item):
-            ct, proof = item
+            _, sig_name, ct, proof = item
+            if sig_name is not None:
+                d = sig_datas[sig_name]
+                return verifier.verify(proof, d.common, d.verifier)
             if ct in block_ct:
                 return toolbox.verify_block_proof(block_ct[ct], proof)
             return toolbox.verify_family_proof(family_of(ct), proof)
         results = in_forked_processes(check, items)
-        for (ct, _), (ok, _) in zip(items, results):
+        for (label, *_), (ok, _) in zip(items, results):
             if not ok:
-                raise AssertionError(f"verify rejects the {ct.name} proof")
+                raise AssertionError(f"verify rejects the {label} proof")
         return [t for _, t in results]
+
+    sighash_proves = {CircuitType.SIGHASH_INTROSPECTION:
+                      ("accelerator", "shape", "minified"),
+                      CircuitType.SIGHASH_WRAPPER: ("wrapper",),
+                      CircuitType.SIGHASH_FINAL_GL: ("final GL",)}
+
+    def record_sighash_jobs(sig_jobs, sig_calls):
+        """Per-job lines of the sighash chain: the job's wall time (the
+        worker's), the proves it made (circuit, rows, degree, wall time,
+        witness seconds, peak device memory), its witness share and
+        peak."""
+        out = []
+        for job, ms in sig_jobs:
+            ct = CircuitType(job.circuit_type)
+            names = sighash_proves[ct]
+            mine = [c for c in sig_calls
+                    if sighash_name[id(c["data"])] in names]
+            if len(mine) != len(names):
+                raise AssertionError(f"{ct.name}: proves {len(mine)} "
+                                     f"circuits, not {names}")
+            proves = [{"circuit": sighash_name[id(c["data"])],
+                       "rows": circuit_rows(c["data"]),
+                       "log_n": c["data"].common.log_n,
+                       "wall_s": c["wall_s"],
+                       "witness_s": c["steps_s"].get("witness", 0.0),
+                       "steps_s": c["steps_s"], "peak_gib": c["peak_gib"],
+                       "held_before_gib": c["held_before_gib"]}
+                      for c in mine]
+            wall = ms / 1e3
+            out.append({"job": ct.name, "wall_s": wall,
+                        "witness_share": sum(p["witness_s"]
+                                             for p in proves) / wall,
+                        "peak_gib": max(p["peak_gib"] for p in proves),
+                        "proves": proves})
+            log(f"job 2 {ct.name}: {wall:.3f} s, witness "
+                f"{out[-1]['witness_share']:.3f}, peak "
+                f"{out[-1]['peak_gib']:.3f} GiB; " + ", ".join(
+                    f"{p['circuit']} log_n {p['log_n']} ({p['rows']} rows) "
+                    f"{p['wall_s']:.3f} s" for p in proves))
+        return out
+
+    def check_final_gl_inputs(planned, store, old_bytes):
+        """Each final-GL proof's public inputs: felt248 of the old city
+        root and felt252 of the input's sighash, from the host."""
+        for i, fin in enumerate(planned.sighash_final_jobs):
+            proof = decode_proof(store.get_proof(fin.output_proof_id()))
+            want = feltenc.hash256_to_felt248(old_bytes) + \
+                feltenc.hash256_to_felt252(btc.sighash(
+                    planned.block_tx, i, planned.covenant_script,
+                    spend_cfg.sighash_type))
+            if [int(x) for x in proof.public_inputs] != want:
+                raise AssertionError(f"final GL {i}: public inputs "
+                                     f"{proof.public_inputs} != {want}")
 
     city = CityStore(user_tree_height=params.user_tree_height,
                      deposit_tree_height=params.deposit_tree_height,
@@ -999,45 +1292,81 @@ def rollup_phase(dev, all_launches, zero_launches):
     store = MemoryProofStore()
     hub = QueueHub()
     orch = om.Orchestrator(city, store, hub, params=params)
-    worker = Worker(toolbox, store, hub)
+    worker = Worker(toolbox, store, hub, sighash_toolbox=sht)
     cli.demo_genesis(city, params)
-    blocks, jobs_line, verify_s = [], [], {}
+    blocks, jobs_line, verify_s, sighash_jobs = [], [], {}, []
     keep = toolbox.family_a.agg.data
     for block, requests, drain in [
             (1, cli.demo_requests(), "process_next_job"),
             (2, block2_requests(om), "process_ready_batch")]:
         zero_launches()
         t0 = time.perf_counter()
-        planned = orch.plan_block(block, requests)
+        l1 = None
+        if block == 2:
+            # block 2's L1 transaction spends the covenant that holds the
+            # city root block 1 left
+            old_bytes = QHashOut(tuple(GOLDEN_BLOCK_ROOTS[1][0])) \
+                .to_le_bytes()
+            prev_tx = om.make_genesis_block_tx(spend_cfg, body, old_bytes,
+                                               balance=COVENANT_BALANCE)
+            l1 = om.L1BlockContext(spend_cfg=spend_cfg, script_body=body,
+                                   prev_block_tx=prev_tx, deposit_txs=[],
+                                   with_groth16=False)
+        planned = orch.plan_block(block, requests, l1_context=l1)
         roots = [list(planned.start_city_root), list(planned.end_city_root)]
         if roots != GOLDEN_BLOCK_ROOTS[block - 1]:
             raise AssertionError(f"block {block}: city roots {roots} are "
                                  "not the reference's")
+        if l1 is not None and [h.gadget_id() for h in planned.hints] != \
+                [gid]:
+            raise AssertionError(f"block 2's L1 transaction has the shapes "
+                                 f"{[h.gadget_id() for h in planned.hints]}")
         orch.enqueue(planned)
         n_bench = len(worker.benchmarks)
-        with ProveRecorder(prover, circuit, keep=keep) as rec:
+        notes = len(hub.queue(Q_NOTIFICATIONS))
+        with ProveRecorder(prover, circuit, keep=keep,
+                           launches=all_launches) as rec:
             if drain == "process_next_job":
                 while worker.process_next_job():
                     pass
             else:
                 while worker.process_ready_batch(max_batch=8):
-                    pass
+                    if len(hub.queue(Q_NOTIFICATIONS)) > notes and any(
+                            store.get_proof(f.output_proof_id()) is None
+                            for f in planned.sighash_final_jobs):
+                        raise AssertionError(
+                            f"block {block}'s completion notification came "
+                            "before its sighash chain")
+        if len(hub.queue(Q_NOTIFICATIONS)) != notes + 1:
+            raise AssertionError(f"block {block}: no completion "
+                                 "notification")
         benches = worker.benchmarks[n_bench:]
         if len(benches) != planned.num_jobs:
             raise AssertionError(f"block {block}: {len(benches)} jobs "
                                  f"proved of {planned.num_jobs}")
         jobs = [(JobID.from_bytes(bytes.fromhex(b.job_id)), b.duration_ms)
                 for b in benches]
-        # one recorder call per job, or per batched group (its members
-        # share the call): process_ready_batch proves its groups, then its
-        # single jobs, in the order of its benchmarks
+        # the sighash chain's proves are the sighash path's (the
+        # introspection job proves the accelerator, the shape circuit and
+        # the minifier); one recorder call per other job, or per batched
+        # group (its members share the call): process_ready_batch proves
+        # its groups, then its single jobs, in the order of its benchmarks
+        sig_calls = [c for c in rec.calls if id(c["data"]) in sighash_ids]
+        sig_jobs = [(j, ms) for j, ms in jobs if j.circuit_type in sighash_ct]
         calls = []
         for call in rec.calls:
-            calls += [call] * call["batch"]
+            if id(call["data"]) not in sighash_ids:
+                calls += [call] * call["batch"]
+        sig_launches = {}
+        for c in sig_calls:
+            for k, v in c["launches"].items():
+                sig_launches[k] = sig_launches.get(k, 0) + v
         ok = orch.finalize(planned, toolbox)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        add_counts()
+        add_counts(counted, less=sig_launches)
+        for k, v in sig_launches.items():
+            sig_counted[k] = sig_counted.get(k, 0) + v
         if not ok:
             raise AssertionError(f"block {block}: finalize rejects the "
                                  "transition proof")
@@ -1047,16 +1376,26 @@ def rollup_phase(dev, all_launches, zero_launches):
                 list(final.public_inputs[4:8])] != roots:
             raise AssertionError(f"block {block}: the transition proof's "
                                  "public inputs are not the city roots")
-        jobs_line += record_jobs(block, jobs, calls)
-        groups = [c["batch"] for c in rec.calls]
+        jobs_line += record_jobs(
+            block, [(j, ms) for j, ms in jobs
+                    if j.circuit_type not in sighash_ct], calls)
+        if l1 is not None:
+            sighash_jobs = record_sighash_jobs(sig_jobs, sig_calls)
+            check_final_gl_inputs(planned, store, old_bytes)
+            l1_block = planned
+        groups = [c["batch"] for c in rec.calls
+                  if id(c["data"]) not in sighash_ids]
         log(f"phase rollup block {block} ({planned.num_jobs} jobs, "
             f"{drain}, prove_batch sizes {groups}) {wall:.3f} s, "
             f"finalize: {ok}")
         t0 = time.perf_counter()
-        verify_s[block] = verify_block(store, jobs)
-        log(f"check verify accepts all {len(jobs)} proofs of block {block} "
-            f"({time.perf_counter() - t0:.3f} s in worker processes, "
-            f"{sum(verify_s[block]):.3f} s of verifying)")
+        extra = [(sighash_name[id(c["data"])], c["proofs"][0])
+                 for c in sig_calls if sighash_name[id(c["data"])] in
+                 ("accelerator", "shape")]
+        verify_s[block] = verify_block(store, jobs, extra)
+        log(f"check verify accepts all {len(jobs) + len(extra)} proofs of "
+            f"block {block} ({time.perf_counter() - t0:.3f} s in worker "
+            f"processes, {sum(verify_s[block]):.3f} s of verifying)")
         blocks.append({"block": block, "jobs": planned.num_jobs,
                        "drain": drain, "wall_s": wall,
                        "prove_batch_sizes": groups, "roots": roots,
@@ -1064,9 +1403,31 @@ def rollup_phase(dev, all_launches, zero_launches):
         if drain == "process_ready_batch" and max(groups) < 2:
             raise AssertionError("block 2 ran no prove_batch with B > 1")
     agg_witness = rec.kept             # block 2's transfer aggregation
-    log("check blocks 1 and 2: the reference's city roots, finalized, the "
-        "transition proofs' public inputs the roots; block 2 proved a "
-        "batch of more than one")
+    log("check blocks 1 and 2: the reference's city roots, "
+        "finalized, the transition proofs' public inputs the roots; block "
+        "2 proved a batch of more than one and its sighash chain, whose "
+        "final-GL public inputs are the host's felt248 of the old root and "
+        "felt252 of the sighash, before its completion notification")
+
+    # --- refused: a final GL whose spend index is not the wrapper's --------
+    t0 = time.perf_counter()
+    tr_proof = decode_proof(store.get_proof(
+        l1_block.final_job.output_proof_id()))
+    wr_job = next(j for j, _ in sig_jobs
+                  if j.circuit_type == int(CircuitType.SIGHASH_WRAPPER))
+    wr_proof = decode_proof(store.get_proof(wr_job.output_proof_id()))
+    refused = None
+    try:
+        sht.prove_final(tr_proof, wr_proof, {
+            "cur_bal": COVENANT_BALANCE,
+            "next_bal": l1_block.block_tx.outputs[0].value, "spend_idx": 1})
+    except ValueError as e:
+        refused = str(e)
+    if refused is None:
+        raise AssertionError("a final GL with spend index 1 for 0 proves")
+    refuse_s = time.perf_counter() - t0
+    log(f"check a final GL with spend index 1 for 0: no witness "
+        f"({refused[:60]}...) ({refuse_s:.3f} s)")
 
     # --- tampering: the transfer aggregation of block 2 over a child proof
     # with one wire opening changed -------------------------------------------
@@ -1107,7 +1468,96 @@ def rollup_phase(dev, all_launches, zero_launches):
         f"first {violations[0][:60]} ({tamper_s:.3f} s)")
     del agg_witness, forged
 
-    # --- kernel times at this path's shapes (B = 1: 2^16 and 2^17 rows) ------
+    # --- signatures: a wallet over the ZK wrapper signs a transfer and a
+    # withdrawal; the transfer op that verifies the wrapper's proof
+    # in-circuit proves the first, and gives no witness with the sender's
+    # leaf under another key (the sighash path's last launches) --------------
+    zero_launches()
+    t0 = time.perf_counter()
+    wallet = CityMemoryWallet.new_fast_setup(wrapper=zkw)
+    pk = wallet.zk.add_zk_private_key(SIGNER_SK)
+    addr = (7, 8, 9)
+    actions = {"transfer": om.transfer_action_hash(signed_params, 0, 1, 1,
+                                                   250),
+               "withdrawal": om.withdrawal_action_hash(signed_params, 0, 2,
+                                                       addr, 60)}
+    sigs, sign_s = {}, {}
+    for name, action in actions.items():
+        t1 = time.perf_counter()
+        sigs[name] = wallet.zk.sign(pk, action)
+        torch.cuda.synchronize()
+        sign_s[name] = time.perf_counter() - t1
+        if sigs[name].public_inputs != list(pk) + list(action):
+            raise AssertionError(f"the wallet's {name} signature does not "
+                                 "sign its action")
+
+    def signed_transfer_witness(sender_pk):
+        """The transfer's stored witness from a one-transfer plan on a
+        scratch CityStore whose sender holds `sender_pk`."""
+        c = CityStore(user_tree_height=params.user_tree_height,
+                      deposit_tree_height=params.deposit_tree_height,
+                      withdrawal_tree_height=params.withdrawal_tree_height)
+        c.register_user(0, 0, tuple(sender_pk))
+        c.register_user(0, 1, (2, 2, 2, 2))
+        c.increment_user_balance(0, 0, 1_000)
+        st = MemoryProofStore()
+        plan = om.Orchestrator(c, st, QueueHub(), params=signed_params) \
+            .plan_block(1, om.BlockRequests(token_transfers=[
+                om.TokenTransfer(0, 1, 250, signature_proof=encode_proof(
+                    sigs["transfer"]).hex())]))
+        job = next(j for j in plan.leaf_jobs if j.circuit_type ==
+                   int(CircuitType.OP_L2_TRANSFER))
+        w = decode_witness(st.get_bytes(job.input_witness_id()))
+        return dict(w, signature_proof=decode_proof(bytes.fromhex(
+            w["signature_proof"])), allowed_root=SIGNED_ALLOWED_ROOT)
+
+    pw = sb.partial_witness()
+    signed_setter(pw, signed_transfer_witness(pk))
+    t1 = time.perf_counter()
+    with ProveRecorder(prover, circuit) as srec:
+        signed_proof = prover.prove(signed_op, pw)
+    signed_prove_s = time.perf_counter() - t1
+    checks = [(f"the wallet's {name} signature", zkw.data, proof)
+              for name, proof in sigs.items()]
+    checks.append(("the signed transfer's proof", signed_op, signed_proof))
+    for (what, *_), (ok, _) in zip(checks, in_forked_processes(
+            lambda c: verifier.verify(c[2], c[1].common, c[1].verifier),
+            checks)):
+        if not ok:
+            raise AssertionError(f"verify rejects {what}")
+    wrong_key = None
+    try:
+        pw = sb.partial_witness()
+        signed_setter(pw, signed_transfer_witness(
+            derive_public_key(OTHER_SK)))
+        circuit.generate_witness(signed_op, pw)
+    except ValueError as e:
+        wrong_key = str(e)
+    if wrong_key is None:
+        raise AssertionError("a transfer signed under another key than the "
+                             "sender's completes into a witness")
+    torch.cuda.synchronize()
+    add_counts(sig_counted)
+    signatures_s = time.perf_counter() - t0
+    signatures = {
+        "zk_wrapper": {k: sig_shapes["zk wrapper"][k]
+                       for k in ("rows", "log_n")},
+        "sign_s": sign_s,
+        "signed_transfer": {
+            k: sig_shapes["signed transfer"][k] for k in ("rows", "log_n")},
+        "prove_s": signed_prove_s,
+        "witness_share": srec.calls[0]["steps_s"].get("witness", 0.0) /
+        srec.calls[0]["wall_s"], "peak_gib": srec.calls[0]["peak_gib"],
+        "phase_s": signatures_s}
+    log(f"check signatures: the wallet's transfer and withdrawal signatures "
+        f"verify ({sign_s['transfer']:.3f} and {sign_s['withdrawal']:.3f} "
+        f"s to sign); the signed transfer (log_n "
+        f"{signatures['signed_transfer']['log_n']}, "
+        f"{signatures['signed_transfer']['rows']} rows) proves in "
+        f"{signed_prove_s:.3f} s and verifies; under another key: no "
+        f"witness ({wrong_key[:60]}...) ({signatures_s:.3f} s)")
+
+    # --- kernel times at this path's shapes (B = 1: 2^14 to 2^17 rows) ------
     kernel_times = []
     for log_n in sorted(by_log_n):
         log_m = log_n + cfg.rate_bits
@@ -1157,8 +1607,12 @@ def rollup_phase(dev, all_launches, zero_launches):
     line = {"circuits": shapes, "build_s": build_s, "blocks": blocks,
             "jobs": jobs_line,
             "verify_s": {str(k): v for k, v in verify_s.items()},
-            "tamper_s": tamper_s, "launches": counted}
-    return line, kernel_times, counted
+            "tamper_s": tamper_s, "launches": counted,
+            "sighash": {"gid": list(SIGHASH_GID), "circuits": sig_shapes,
+                        "jobs": sighash_jobs, "refuse_s": refuse_s,
+                        "launches": sig_counted},
+            "signatures": signatures}
+    return line, kernel_times, counted, sig_counted
 
 
 def main() -> int:
@@ -1779,10 +2233,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- the rollup's block pipeline, counted --------------------------------
-    rollup_line, rollup_kernels, path_launches["rollup"] = rollup_phase(
-        dev, all_launches, zero_launches)
+    (rollup_line, rollup_kernels, path_launches["rollup"],
+     path_launches["sighash"]) = rollup_phase(dev, all_launches,
+                                              zero_launches)
     log(f"rollup path launches {json.dumps(path_launches['rollup'])}")
     require_launched(path_launches["rollup"], ROLLUP_KERNELS, "rollup")
+    log(f"sighash path launches {json.dumps(path_launches['sighash'])}")
+    require_launched(path_launches["sighash"], SIGHASH_KERNELS, "sighash")
     torch.cuda.empty_cache()
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in path_launches["commit"]}

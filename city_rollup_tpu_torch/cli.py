@@ -2,10 +2,11 @@
 
 Reference role: city_rollup_cli (SURVEY.md §2.1 row 21; clap dispatch
 main.rs:23-46). Counterpart of the reference's ``cli.py``: the in-memory
-block pipeline and the bench harness, on the port's prover. The
-subcommands that need the signature, Groth16 and service modules
-(``sighash-corpus``, ``store-server``, ``l2-worker``, ``api-server``,
-``rpc-server``, ``user-prover``, ``orchestrator``) come with those modules.
+block pipeline, the bench harness and the sighash whitelist corpus, on the
+port's prover. The subcommands that need the service modules
+(``store-server``, ``l2-worker``, ``api-server``, ``rpc-server``,
+``user-prover``, ``orchestrator``, each with its ``--with-signatures``)
+come with those modules (ROADMAP A12d).
 
 Every subcommand that proves or builds takes ``--device`` (default
 ``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels).
@@ -101,6 +102,37 @@ def cmd_qbench(args):
     return 0
 
 
+def cmd_sighash_corpus(args):
+    """Resumable offline sighash-whitelist fingerprint generation
+    (rollup/sighash_corpus.py; reference sighash_wrapper_config.rs:24's
+    precomputed 1,875-entry table). Shard with --start/--count; re-running
+    with the same --out resumes."""
+    from .rollup import btc, sighash_corpus
+    params = _params(args)
+    if args.dev_covenant:
+        spend_cfg = btc.dev_spend_cfg()
+        body = btc.DEV_SCRIPT_BODY
+    else:
+        spend_cfg = btc.BlockSpendCoreConfig()
+        body = bytes.fromhex(args.script_body or "")
+        assert len(body) + 33 == spend_cfg.block_sighash_script_size, \
+            "--script-body must be the production covenant body"
+
+    def progress(i, total, gid, fp):
+        print(json.dumps({"i": i, "total": total,
+                          "gid": gid.to_felt(), "fp0": str(fp[0])}),
+              flush=True)
+
+    corpus = sighash_corpus.generate(
+        params.config, spend_cfg, body, args.out,
+        start=args.start, count=args.count, progress=progress,
+        device=args.device)
+    root = corpus.whitelist_root()
+    print(json.dumps({"entries": len(corpus.fps), "of": 1875,
+                      "whitelist_root": [str(x) for x in root]}))
+    return 0
+
+
 def cmd_inspect_dump(args):
     from .rollup.qbench import BlockProofStoreDump
     with open(args.input) as f:
@@ -176,6 +208,19 @@ def main(argv=None):
     ins = sub.add_parser("inspect-dump")
     ins.add_argument("input")
     ins.set_defaults(fn=cmd_inspect_dump)
+
+    sc = with_device(sub.add_parser(
+        "sighash-corpus",
+        help="precompute whitelist fingerprints (resumable)"))
+    sc.add_argument("--out", required=True)
+    sc.add_argument("--start", type=int, default=0)
+    sc.add_argument("--count", type=int, default=None)
+    sc.add_argument("--fast", action="store_true")
+    sc.add_argument("--dev-covenant", action="store_true",
+                    help="dev-tier shrunken covenant (test fixture)")
+    sc.add_argument("--script-body", default=None,
+                    help="production covenant body hex")
+    sc.set_defaults(fn=cmd_sighash_corpus)
 
     ci = with_device(sub.add_parser("print-circuit-info"))
     ci.add_argument("circuit", help="e.g. OP_L2_TRANSFER")

@@ -4,6 +4,10 @@ reference's L1-L5 layers (SURVEY.md §1), driving the port's prover.
 
 Counterpart of the reference's ``rollup/``: the in-memory block pipeline
 (state store, job DAG, op / aggregation / block circuits, worker,
-orchestrator, qbench). The signature, sighash, Groth16 and network modules
-come with later slices.
+orchestrator, qbench), the block's L1 binding (the SHA256 accelerator,
+the sighash introspection circuits, the whitelist, the sighash wrapper
+and final-GL circuits, the corpus and the sighash toolbox) and the user
+signatures (ZK and L1 signature circuits, wallets). Still missing: the
+Groth16 wrap (``groth16_wrap.py``, ROADMAP A12c) and the network
+services (``netstore.py``, ``link.py`` and the servers, A12d).
 """

@@ -13,12 +13,14 @@ block circuits chain the per-family spans into one
 
 Counterpart of the reference's ``rollup/circuits.py``, on the port's
 prover: every circuit is built for one device (``CircuitToolbox(...,
-device=)``), where its preprocessing and its proofs run. The signature
-wrapper (``with_signatures=True``) comes with the signature slice.
+device=)``), where its preprocessing and its proofs run, the
+signature wrapper's (``with_signatures=True``) too. Still missing: the
+Groth16 wrap (ROADMAP A12c) and the network services (A12d).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pickle
 
@@ -97,17 +99,20 @@ class CircuitToolbox:
     def __init__(self, params: oc.RollupParams | None = None,
                  with_signatures: bool = False, device=None):
         """`device`: where every circuit's preprocessing and proofs run
-        (CUDA unless ``device="cpu"``). `with_signatures=True` (the
-        ZK-signature wrapper threaded into the op circuits, the
-        reference's build order zk_signature_wrapper -> ops,
-        circuits.rs:87-95) needs ``rollup/zk_signature.py``, which the
-        port does not have yet."""
-        if with_signatures:
-            raise NotImplementedError(
-                "with_signatures needs rollup/zk_signature.py, which comes "
-                "with the port's signature slice (ROADMAP A12b)")
+        (CUDA unless ``device="cpu"``). `with_signatures=True` builds the
+        ZK-signature wrapper circuit first, on `device`, and threads it
+        into the op circuits, which then recursively verify user
+        signature proofs in-circuit (the reference's build order:
+        zk_signature_wrapper -> ops, circuits.rs:87-95)."""
         self.params = params or DEFAULT_PARAMS
         self.device = device
+        self.zk_wrapper = None
+        if with_signatures and self.params.sig_wrapper is None:
+            from .zk_signature import ZKSignatureWrapperCircuit
+            self.zk_wrapper = ZKSignatureWrapperCircuit.build(
+                self.params.config, device=device)
+            self.params = dataclasses.replace(
+                self.params, sig_wrapper=self.zk_wrapper.data)
         self._family_a = None
         self._family_b = None
         self._block = None

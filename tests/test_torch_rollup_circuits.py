@@ -218,9 +218,19 @@ def test_standalone_op_proof_passes_the_references_verifier():
 
 
 def test_toolbox_takes_a_device_and_refuses_signatures():
+    """The toolbox builds lazily on its device; since the signature slice
+    it no longer refuses `with_signatures` (it builds the ZK wrapper on
+    that device), and what it still refuses is the Groth16 wrap of the
+    sighash chain, before anything is built."""
+    from city_rollup_tpu_torch.rollup.sighash_toolbox import SigHashToolbox
     tb = circuits.CircuitToolbox(small_params(oc, CircuitConfig,
                                              fri.FriConfig), device="cpu")
     assert tb.device == "cpu" and tb._family_a is None
-    with pytest.raises(NotImplementedError, match="signature"):
-        circuits.CircuitToolbox(circuits.FAST_TEST_PARAMS,
-                                with_signatures=True)
+    assert tb.zk_wrapper is None and tb.params.sig_wrapper is None
+    signed = circuits.CircuitToolbox(circuits.FAST_TEST_PARAMS,
+                                     with_signatures=True, device="cpu")
+    assert signed.params.sig_wrapper is signed.zk_wrapper.data
+    assert signed._family_a is None
+    with pytest.raises(NotImplementedError, match="Groth16"):
+        SigHashToolbox(circuits.FAST_TEST_CONFIG, None, b"", [], None,
+                       with_groth16=True, device="cpu")
