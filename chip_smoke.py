@@ -13,8 +13,9 @@ In order, it:
      edge values: K1 and K2 at log_m 14, 23 (batch 1, and the one-shot
      commit's 64) and 25 (one streamed slab of 8) as coset LDEs, 8 (batch
      1 and 8) and 5 (inverse, with the output scaling), and the prover's
-     intt of (8 x 144, 2^12), coset LDE 2^12 -> 2^15 and quotient
-     coset_intt of (8 x 2, 2^15); the tail kernel, off those paths,
+     intt of (B x 144, 2^12), coset LDE 2^12 -> 2^15 and quotient
+     coset_intt of (B x 2, 2^15) (B = PROVE_BATCH); the tail kernel, off
+     those paths,
      directly and through a transform with MAX_KERNEL_LOG lowered; K4 at
      the prover's leaf widths (a partial last sponge chunk) and its
      Merkle-level entry (reduce_level_t);
@@ -23,12 +24,12 @@ In order, it:
      tests/test_torch_pipeline.py), and the small seed-7 FRI proof against
      GOLDEN_FRI (pinned by tests/test_torch_fri.py);
   5. drives the commit path once with every launch count set to 0:
-     lde_commit at 2^20 x 64 and lde_commit_streamed at 2^22 x 64
+     lde_commit at 2^18 x 64 and lde_commit_streamed at 2^22 x 64
      (rate_bits 3, cap_height 4), then holds streamed == one-shot at
-     2^20 x 64;
+     2^18 x 64;
   6. drives the FRI path once with every launch count set to 0, under
-     FriConfig() defaults: fri_prove of a degree < 2^20 ext codeword
-     (log_m 23) and fri_prove_batch of 8 codewords at log_m 20; then holds
+     FriConfig() defaults: fri_prove of a degree < 2^18 ext codeword
+     (log_m 21) and fri_prove_batch of 8 codewords at log_m 20; then holds
      batch proof 0 == fri_prove of codeword 0 alone, and has the host
      fri_verify accept the full-width and one batch proof and reject the
      full-width proof with one final-poly coefficient changed;
@@ -38,7 +39,8 @@ In order, it:
      count set to 0, at the full prover width (CircuitConfig.
      poseidon_config(), FriConfig() defaults): FULL_PATHS Merkle-path
      membership checks of height 32 filling 2^12 rows, preprocessed, then
-     prove (B = 1) cold and warm and prove_batch of 8 witnesses, with each
+     prove (B = 1) cold and warm and prove_batch of PROVE_BATCH witnesses,
+     with each
      run's wall time, peak device memory and step times; then has the host
      verifier accept every proof and reject a tampered one, and holds batch
      proof 0 == prove of its witness alone;
@@ -52,7 +54,7 @@ In order, it:
      and K4 at the shapes of both proves (every committed matrix's intt
      and coset LDE, the quotient's coset_intt, the leaf widths), then
      drives the recursion path once with every launch count set to 0: the
-     wrapper's preprocessing, its prove cold and warm, and an
+     wrapper's preprocessing, its prove, and an
      aggregation-style step (aggregation_circuit: the wrapper's proof
      verified against verifier data given as witness, its fingerprint the
      public input); then has the host verifier accept both proofs, checks
@@ -91,7 +93,23 @@ In order, it:
      signature and verifies, and gives no witness when the sender's leaf
      holds another key. The sighash path's launches (its circuits'
      preprocessing, its proves, the signatures) are counted apart from
-     the rollup path's;
+     the rollup path's. Block 2 goes through the fleet's services: the
+     port's store-server and rpc-server as subprocesses of its CLI, the
+     query API over this process's CityStore, the requests sent to the
+     node with CityRpcProvider (a signed transfer refused: the fleet runs
+     without signature verification), the orchestrator service (a
+     thread: wait_for_produce_block, produce_one_block with the L1
+     context and its Groth16 wrap) and the worker over NetProofStore /
+     NetQueueHub; the completion notification comes after the wrap, whose
+     public inputs are checked against the host's pack_state and
+     binding_digest of the final GL's, groth16.verify accepts it and
+     rejects each public input changed, assemble_l1_transaction refuses
+     without a dev-mode flag and with one returns the block transaction
+     (the wrap's pushes, the covenant script) broadcast on a
+     MemoryBTCLink; the node, forwarding to the api server, answers block
+     2's city root and the wrap's stored bytes; and a signature is proved
+     through the user-prover service and verified. Every service is
+     stopped at the end, on failure too;
  10. times each kernel, its plain version and its bound, and the whole
      coset LDE of one streamed slab and of the one-shot input against its
      byte bound, and K4, K1 and K2 at the prove and recursion paths'
@@ -101,7 +119,8 @@ In order, it:
 and prints one JSON line of the prove path, one of the recursion path, one
 of the rollup path (per job: circuit, rows, log_n, wall time, witness
 share, peak device memory; the builds, blocks and verifies; the sighash
-circuits and jobs; the signatures), one of the
+circuits and jobs; the signatures; the Groth16 wrap; the services), one
+of the
 LDE, prove-path, recursion-path and rollup-path kernel times, one of
 kernels,
 then as its last line
@@ -112,10 +131,12 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -426,11 +447,16 @@ FRI_KERNELS = ("ntt_fourstep_tw", "ntt_block", "poseidon_permute",
 # hashes its leaves and tree levels (K4) and runs FRI, which grinds (K3).
 PROVE_KERNELS = ("ntt_fourstep_tw", "ntt_block", "poseidon_permute",
                  "poseidon_sponge")
-# The prove path's batch (one aggregation level's) and the leaf widths its
-# trees hash: wires (144, zk 148), Z and partial products (10, zk 14),
-# quotient chunks (16, zk 20); the constants/sigmas width S is the
-# circuit's.
-PROVE_BATCH = 8
+# The prove path's batch and the leaf widths its trees hash: wires (144, zk
+# 148), Z and partial products (10, zk 14), quotient chunks (16, zk 20);
+# the constants/sigmas width S is the circuit's. The batch was 8 until the
+# script had to fit block 2's fleet and Groth16 wrap into the call's time:
+# 2 is a leaf level's pairs, the B the rollup's blocks prove.
+PROVE_BATCH = 2
+# The one-shot commit (was 2^20 x 64, BASELINE's config 2) and FRI's
+# single codeword (was log_m 23), cut for the same reason.
+ONE_SHOT_LOG_N = 18
+FRI_LOG_N = 18
 PROVE_LEAF_WIDTHS = (10, 14, 16, 20, 144, 148)
 
 
@@ -825,6 +851,162 @@ class BuildRecorder:
         self.cls.__init__, self.cls.build = self._init, self._build
 
 
+class Groth16Recorder:
+    """While entered, times groth16.setup (the wrap statement's trusted
+    setup, run when SigHashToolbox builds it). `watch(toolbox)` wraps the
+    toolbox's wrap_groth16 so that each wrap is recorded: its result and
+    the seconds of its final-GL host verify, witness, prove and verify."""
+
+    def __init__(self, groth16_mod, verifier_mod):
+        self.g16, self.verifier = groth16_mod, verifier_mod
+        self.setup_s = 0.0
+        self.results = []
+
+    def __enter__(self):
+        self._setup = setup = self.g16.setup
+
+        def timed_setup(*args, **kw):
+            t = time.perf_counter()
+            out = setup(*args, **kw)
+            self.setup_s += time.perf_counter() - t
+            return out
+
+        self.g16.setup = timed_setup
+        return self
+
+    def __exit__(self, *exc):
+        self.g16.setup = self._setup
+
+    def watch(self, toolbox):
+        g16, ver, wrap = self.g16, self.verifier, toolbox.wrap_groth16
+
+        def timed_wrap(final_proof):
+            times = {"gl_verify_s": 0.0, "prove_s": 0.0, "verify_s": 0.0}
+
+            def timed(name, fn):
+                def run(*args, **kw):
+                    t = time.perf_counter()
+                    out = fn(*args, **kw)
+                    times[name] += time.perf_counter() - t
+                    return out
+                return run
+
+            saved = g16.prove, g16.verify, ver.verify
+            g16.prove = timed("prove_s", g16.prove)
+            g16.verify = timed("verify_s", g16.verify)
+            ver.verify = timed("gl_verify_s", ver.verify)
+            t0 = time.perf_counter()
+            try:
+                res = wrap(final_proof)
+            finally:
+                g16.prove, g16.verify, ver.verify = saved
+            times["wrap_s"] = time.perf_counter() - t0
+            times["witness_s"] = times["wrap_s"] - times["gl_verify_s"] - \
+                times["prove_s"] - times["verify_s"]
+            self.results.append(dict(res, times=times))
+            return res
+
+        toolbox.wrap_groth16 = timed_wrap
+
+
+class RpcCounter:
+    """While entered, counts the JSON-RPC calls this process makes
+    (services.rpc_common._raw_call: the provider's and rpc_call's)."""
+
+    def __init__(self, rpc_mod):
+        self.mod = rpc_mod
+        self.calls = 0
+
+    def __enter__(self):
+        self._raw = raw = self.mod._raw_call
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return raw(*args, **kw)
+
+        self.mod._raw_call = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._raw_call = self._raw
+
+
+class WireCounter:
+    """While entered, counts the calls this process's netstore clients make
+    and the hex characters of the values and messages they move (both
+    ways: proofs, witnesses, queue messages)."""
+
+    def __init__(self, netstore_mod):
+        self.cls = netstore_mod._Conn
+        self.calls = 0
+        self.hex_bytes = 0
+
+    def __enter__(self):
+        self._call = call = self.cls.call
+
+        def counted(conn, req):
+            resp = call(conn, req)
+            self.calls += 1
+            self.hex_bytes += sum(len(d.get(k) or "") for d in (req, resp)
+                                  for k in ("v", "msg"))
+            return resp
+
+        self.cls.call = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.call = self._call
+
+
+class ServiceProcess:
+    """`python -m city_rollup_tpu_torch.cli <args>` (a service of the port's
+    CLI) started from this checkout when made, so that it starts while the
+    script works on; stopped when `fleet` (an ExitStack) closes. A thread
+    reads its first line, {"listening": ...}, and the seconds it took."""
+
+    def __init__(self, fleet, args):
+        import os
+        root = str(Path(__file__).resolve().parent)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        self.name = args[0]
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "city_rollup_tpu_torch.cli"] + args,
+            cwd=root, env=env, stdout=subprocess.PIPE, text=True)
+        fleet.callback(self.stop)
+        self.line, self.start_s = None, None
+        t0 = time.perf_counter()
+
+        def read_first_line():
+            self.line = self.proc.stdout.readline()
+            self.start_s = time.perf_counter() - t0
+
+        self._reader = threading.Thread(target=read_first_line, daemon=True)
+        self._reader.start()
+
+    def address(self, timeout_s: float = 120.0) -> str:
+        """The address it listens on; raises if it exited first or said
+        nothing within `timeout_s`."""
+        self._reader.join(timeout_s)
+        if self._reader.is_alive():
+            raise AssertionError(f"{self.name} said nothing in {timeout_s} s")
+        if not self.line:
+            raise AssertionError(f"{self.name} exited ({self.proc.wait()}) "
+                                 "before listening")
+        return json.loads(self.line)["listening"]
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._reader.join(30)
+        self.proc.stdout.close()
+
+
 # --- the block's L1 binding and user signatures (rollup/sighash_*.py,
 # zk_signature.py, wallet.py) ----------------------------------------------
 # Block 2 spends the dev covenant (btc.dev_spend_cfg(), btc.DEV_SCRIPT_BODY:
@@ -843,6 +1025,15 @@ SIGNER_SK = [11, 22, 33, 44]
 OTHER_SK = [5, 6, 7, 8]
 # any felts stand for a standalone op's allowed root (as in the tests)
 SIGNED_ALLOWED_ROOT = (11, 12, 13, 14)
+# Block 2 is finished by its Groth16 wrap, whose trusted setup runs from
+# this seed (dev mode: a run can be repeated; anyone who knows the seed can
+# forge proofs). The store hides a received job for STORE_VISIBILITY_S,
+# longer than the longest batch of jobs the worker pops (no redelivery
+# mid-drain); the orchestrator service awaits the block's completion for
+# at most BLOCK2_TIMEOUT_S.
+GROTH16_SEED = b"chip-smoke block 2"
+STORE_VISIBILITY_S = 1800
+BLOCK2_TIMEOUT_S = 600
 
 # The reference package's host build at DEFAULT_PARAMS.config
 # (poseidon_config(), FriConfig()) of the dev covenant's shape gid
@@ -921,7 +1112,7 @@ def sighash_shape_differences(datas: dict) -> list[str]:
     return bad
 
 
-def rollup_phase(dev, all_launches, zero_launches):
+def rollup_phase(dev, all_launches, zero_launches, fleet):
     """The rollup's block pipeline at DEFAULT_PARAMS, on the card: the
     toolbox's circuits built and held against GOLDEN_ROLLUP_SHAPES, the
     sighash toolbox of block 2's shape and the signature circuits built
@@ -932,7 +1123,12 @@ def rollup_phase(dev, all_launches, zero_launches):
     host-verified, an aggregation over a changed child proof and a final
     GL with a wrong spend index refused; then two actions signed by a
     wallet and a transfer op that verifies a signature in-circuit proved,
-    and refused under another key. Returns (the rollup JSON line, kernel
+    and refused under another key. Block 2 goes through the fleet's
+    services (block2), finished by its Groth16 wrap, whose proof is checked
+    and assembled into the block's L1 transaction; a signature is proved
+    through the user-prover service. Every process and server it starts is
+    stopped when `fleet` (an ExitStack) closes. Returns (the rollup JSON
+    line, kernel
     times at its shapes, the rollup path's launches: the circuits'
     preprocessing and both blocks' rollup jobs, counted from 0 around
     each; the sighash path's: its circuits' preprocessing, block 2's
@@ -943,8 +1139,9 @@ def rollup_phase(dev, all_launches, zero_launches):
     from city_rollup_tpu_torch.core import cuda_poseidon as cp
     from city_rollup_tpu_torch.core import ntt as tn
     from city_rollup_tpu_torch.crypto import felts as feltenc
+    from city_rollup_tpu_torch.crypto import groth16
     from city_rollup_tpu_torch.crypto.qhashout import QHashOut
-    from city_rollup_tpu_torch.rollup import btc
+    from city_rollup_tpu_torch.rollup import btc, groth16_wrap, netstore
     from city_rollup_tpu_torch.rollup import op_circuits as oc
     from city_rollup_tpu_torch.rollup import orchestrator as om
     from city_rollup_tpu_torch.rollup.circuits import (
@@ -953,6 +1150,9 @@ def rollup_phase(dev, all_launches, zero_launches):
         encode_proof)
     from city_rollup_tpu_torch.rollup.city_store import CityStore
     from city_rollup_tpu_torch.rollup.job_id import CircuitType, JobID
+    from city_rollup_tpu_torch.rollup.link import MemoryBTCLink
+    from city_rollup_tpu_torch.rollup.netstore import (NetProofStore,
+                                                       NetQueueHub)
     from city_rollup_tpu_torch.rollup.proof_store import MemoryProofStore
     from city_rollup_tpu_torch.rollup.queues import Q_NOTIFICATIONS, QueueHub
     from city_rollup_tpu_torch.rollup.sighash_toolbox import SigHashToolbox
@@ -960,11 +1160,24 @@ def rollup_phase(dev, all_launches, zero_launches):
     from city_rollup_tpu_torch.rollup.worker import Worker
     from city_rollup_tpu_torch.rollup.zk_signature import (
         ZKSignatureWrapperCircuit, derive_public_key)
+    from city_rollup_tpu_torch.services import rpc_common
+    from city_rollup_tpu_torch.services.api_server import make_api_server
+    from city_rollup_tpu_torch.services.orchestrator_service import (
+        produce_one_block, wait_for_produce_block)
+    from city_rollup_tpu_torch.services.provider import CityRpcProvider
+    from city_rollup_tpu_torch.services.rpc_common import (JsonRpcError,
+                                                           rpc_call)
+    from city_rollup_tpu_torch.services.user_prover import \
+        make_user_prover_server
     from city_rollup_tpu_torch.snark import circuit, prover, verifier
     from city_rollup_tpu_torch.snark.debug import check_witness
 
     params = DEFAULT_PARAMS
     cfg = params.config
+    # block 2's store-server starts now, while the circuits build
+    store_svc = ServiceProcess(fleet, [
+        "store-server", "--port", "0", "--visibility-timeout",
+        str(STORE_VISIBILITY_S)])
     counted = {}
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -1043,10 +1256,14 @@ def rollup_phase(dev, all_launches, zero_launches):
     gid = btc.SigHashGadgetId(*SIGHASH_GID)
     sig_counted = {}
     zero_launches()
+    g16_rec = Groth16Recorder(groth16, verifier)
     with BuildRecorder(circuit) as brec:
         t0 = time.perf_counter()
-        sht = SigHashToolbox(cfg, spend_cfg, body, [gid],
-                             toolbox.block["transition"][0], device=dev)
+        with g16_rec:
+            sht = SigHashToolbox(cfg, spend_cfg, body, [gid],
+                                 toolbox.block["transition"][0],
+                                 with_groth16=True, groth16_seed=GROTH16_SEED,
+                                 groth16_dev=True, device=dev)
         torch.cuda.synchronize()
         build_s["sighash toolbox"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -1078,8 +1295,11 @@ def rollup_phase(dev, all_launches, zero_launches):
             f"log_n {sig_shapes[name]['log_n']}, S = "
             f"{sig_shapes[name]['S']}, gates {sig_shapes[name]['gates']}, "
             f"built in {b['build_s']:.3f} s")
-    log(f"phase sighash build: toolbox {build_s['sighash toolbox']:.3f} s, "
-        f"signature circuits {build_s['signature circuits']:.3f} s; the "
+    g16_rec.watch(sht)
+    log(f"phase sighash build: toolbox {build_s['sighash toolbox']:.3f} s "
+        f"(the Groth16 wrap's setup {g16_rec.setup_s:.3f} s of it, "
+        f"{len(sht.groth16.r1cs.a_rows)} constraints), signature circuits "
+        f"{build_s['signature circuits']:.3f} s; the "
         f"transition's gates "
         f"{shape_of(toolbox.block['transition'][0])['gates']}")
     wrong = sighash_shape_differences(sig_datas)
@@ -1289,30 +1509,143 @@ def rollup_phase(dev, all_launches, zero_launches):
     city = CityStore(user_tree_height=params.user_tree_height,
                      deposit_tree_height=params.deposit_tree_height,
                      withdrawal_tree_height=params.withdrawal_tree_height)
-    store = MemoryProofStore()
-    hub = QueueHub()
-    orch = om.Orchestrator(city, store, hub, params=params)
-    worker = Worker(toolbox, store, hub, sighash_toolbox=sht)
     cli.demo_genesis(city, params)
     blocks, jobs_line, verify_s, sighash_jobs = [], [], {}, []
     keep = toolbox.family_a.agg.data
-    for block, requests, drain in [
-            (1, cli.demo_requests(), "process_next_job"),
-            (2, block2_requests(om), "process_ready_batch")]:
+    services = {"start_s": {}}
+    rpc_calls, wire = RpcCounter(rpc_common), WireCounter(netstore)
+    fleet.enter_context(rpc_calls)
+    fleet.enter_context(wire)
+    # the query API over this process's CityStore (a thread) and the
+    # rpc-server, which forwards queries to it, start before block 1
+    store_addr = store_svc.address()
+    host, port = store_addr.rsplit(":", 1)
+    port = int(port)
+    t = time.perf_counter()
+    api = make_api_server(city, NetProofStore(host, port))
+    api.start_background()
+    fleet.callback(api.shutdown)
+    services["start_s"]["api-server"] = time.perf_counter() - t
+    node_svc = ServiceProcess(fleet, [
+        "rpc-server", "--port", "0", "--store", store_addr, "--api-url",
+        api.url])
+
+    def block1():
+        """The CLI's demo block in a MemoryProofStore, planned and drained
+        by process_next_job in this process."""
+        store, hub = MemoryProofStore(), QueueHub()
+        orch = om.Orchestrator(city, store, hub, params=params)
+        worker = Worker(toolbox, store, hub, sighash_toolbox=sht)
+        planned = orch.plan_block(1, cli.demo_requests())
+        orch.enqueue(planned)
+        with ProveRecorder(prover, circuit, keep=keep,
+                           launches=all_launches) as rec:
+            while worker.process_next_job():
+                pass
+        if len(hub.queue(Q_NOTIFICATIONS)) != 1:
+            raise AssertionError("block 1: no completion notification")
+        return planned, rec, store, orch, worker
+
+    def block2(l1):
+        """Block 2 through the fleet's services: the port's store-server
+        and rpc-server (subprocesses, started through its CLI), the query
+        API (a thread, over this process's CityStore), the requests sent
+        to the node, the orchestrator service (a thread: the produce-block
+        command, the RPC queues flushed into the block, planned, enqueued
+        and awaited) and a worker with the sighash toolbox over
+        NetProofStore / NetQueueHub, in this process."""
+        node_url = node_svc.address()
+        for svc in (store_svc, node_svc):
+            services["start_s"][svc.name] = svc.start_s
+        provider = CityRpcProvider(node_url=node_url)
+        services.update(store=store_addr, api=api.url, node=node_url,
+                        provider=provider)
+        t_ingress = time.perf_counter()
+        want = block2_requests(om)
+        for r in want.register_users:
+            provider.register_user(r.user_id, r.public_key)
+        for tr in want.token_transfers:
+            provider.token_transfer(tr.from_user, tr.to_user, tr.value)
+        refused = None
+        try:
+            provider.token_transfer(0, 2, 1, signature_proof="00" * 8)
+        except JsonRpcError as e:
+            refused = str(e)
+        if refused is None:
+            raise AssertionError("the node queues a signed transfer for a "
+                                 "fleet without signature verification")
+        services["refused_signed"] = refused
+        t_produce = time.perf_counter()
+        services["ingress_s"] = t_produce - t_ingress
+        provider.produce_block()
+        log(f"phase fleet: store-server {store_addr}, api server {api.url}, "
+            f"rpc-server {node_url} (seconds from launch to listening, "
+            f"started while the script worked on: "
+            f"{json.dumps({k: round(v, 3) for k, v in services['start_s'].items()})}); "
+            f"block 2's requests and produce-block sent to the node in "
+            f"{services['ingress_s']:.3f} s, a signed transfer refused")
+        orch = om.Orchestrator(city, NetProofStore(host, port),
+                               NetQueueHub(host, port), params=params)
+        result = {}
+
+        def orchestrate():
+            try:
+                if not wait_for_produce_block(orch.hub, timeout_s=60):
+                    raise AssertionError("no produce-block command came")
+                planned, done = produce_one_block(
+                    orch, orch.hub, 2, l1_context=l1,
+                    timeout_s=BLOCK2_TIMEOUT_S)
+                result["notified_s"] = time.perf_counter() - t_produce
+                # the Groth16 wrap's output is in the store when the
+                # notification has come
+                result["g16_stored"] = [
+                    orch.store.get_bytes(j.output_proof_id()) is not None
+                    for j in planned.groth16_jobs]
+                result.update(planned=planned, done=done)
+            except BaseException as e:         # re-raised by the caller
+                result["error"] = e
+
+        th = threading.Thread(target=orchestrate, daemon=True)
+        th.start()
+        store, hub = NetProofStore(host, port), NetQueueHub(host, port)
+        worker = Worker(toolbox, store, hub, sighash_toolbox=sht)
+        with ProveRecorder(prover, circuit, keep=keep,
+                           launches=all_launches) as rec:
+            while th.is_alive():
+                if not worker.process_ready_batch(max_batch=8):
+                    time.sleep(0.25)
+        th.join()
+        if "error" in result:
+            raise result["error"]
+        planned = result["planned"]
+        if not result["done"]:
+            raise AssertionError("block 2: no completion notification in "
+                                 f"{BLOCK2_TIMEOUT_S} s")
+        if not planned.groth16_jobs or not all(result["g16_stored"]):
+            raise AssertionError("block 2's completion notification came "
+                                 "before its Groth16 wrap")
+        services["block2_produce_to_notification_s"] = result["notified_s"]
+        return planned, rec, store, orch, worker
+
+    for block in (1, 2):
         zero_launches()
         t0 = time.perf_counter()
         l1 = None
-        if block == 2:
+        if block == 1:
+            planned, rec, store, orch, worker = block1()
+            drain, backend = "process_next_job", "memory"
+        else:
             # block 2's L1 transaction spends the covenant that holds the
-            # city root block 1 left
+            # city root block 1 left, and is finished by its Groth16 wrap
             old_bytes = QHashOut(tuple(GOLDEN_BLOCK_ROOTS[1][0])) \
                 .to_le_bytes()
             prev_tx = om.make_genesis_block_tx(spend_cfg, body, old_bytes,
                                                balance=COVENANT_BALANCE)
             l1 = om.L1BlockContext(spend_cfg=spend_cfg, script_body=body,
                                    prev_block_tx=prev_tx, deposit_txs=[],
-                                   with_groth16=False)
-        planned = orch.plan_block(block, requests, l1_context=l1)
+                                   with_groth16=True)
+            planned, rec, store, orch, worker = block2(l1)
+            drain, backend = "process_ready_batch", "netstore"
         roots = [list(planned.start_city_root), list(planned.end_city_root)]
         if roots != GOLDEN_BLOCK_ROOTS[block - 1]:
             raise AssertionError(f"block {block}: city roots {roots} are "
@@ -1321,31 +1654,18 @@ def rollup_phase(dev, all_launches, zero_launches):
                 [gid]:
             raise AssertionError(f"block 2's L1 transaction has the shapes "
                                  f"{[h.gadget_id() for h in planned.hints]}")
-        orch.enqueue(planned)
-        n_bench = len(worker.benchmarks)
-        notes = len(hub.queue(Q_NOTIFICATIONS))
-        with ProveRecorder(prover, circuit, keep=keep,
-                           launches=all_launches) as rec:
-            if drain == "process_next_job":
-                while worker.process_next_job():
-                    pass
-            else:
-                while worker.process_ready_batch(max_batch=8):
-                    if len(hub.queue(Q_NOTIFICATIONS)) > notes and any(
-                            store.get_proof(f.output_proof_id()) is None
-                            for f in planned.sighash_final_jobs):
-                        raise AssertionError(
-                            f"block {block}'s completion notification came "
-                            "before its sighash chain")
-        if len(hub.queue(Q_NOTIFICATIONS)) != notes + 1:
-            raise AssertionError(f"block {block}: no completion "
-                                 "notification")
-        benches = worker.benchmarks[n_bench:]
+        benches = worker.benchmarks
         if len(benches) != planned.num_jobs:
             raise AssertionError(f"block {block}: {len(benches)} jobs "
                                  f"proved of {planned.num_jobs}")
         jobs = [(JobID.from_bytes(bytes.fromhex(b.job_id)), b.duration_ms)
                 for b in benches]
+        # the Groth16 wrap is host work (no prove_batch call, no
+        # Goldilocks proof): it is checked below
+        g16_jobs = [(j, ms) for j, ms in jobs if j.circuit_type ==
+                    CircuitType.WRAP_FINAL_SIGHASH_PROOF_BLS12381]
+        jobs = [(j, ms) for j, ms in jobs if j.circuit_type !=
+                CircuitType.WRAP_FINAL_SIGHASH_PROOF_BLS12381]
         # the sighash chain's proves are the sighash path's (the
         # introspection job proves the accelerator, the shape circuit and
         # the minifier); one recorder call per other job, or per batched
@@ -1382,12 +1702,12 @@ def rollup_phase(dev, all_launches, zero_launches):
         if l1 is not None:
             sighash_jobs = record_sighash_jobs(sig_jobs, sig_calls)
             check_final_gl_inputs(planned, store, old_bytes)
-            l1_block = planned
+            l1_block, l1_orch = planned, orch
         groups = [c["batch"] for c in rec.calls
                   if id(c["data"]) not in sighash_ids]
         log(f"phase rollup block {block} ({planned.num_jobs} jobs, "
-            f"{drain}, prove_batch sizes {groups}) {wall:.3f} s, "
-            f"finalize: {ok}")
+            f"{drain}, {backend} backend, prove_batch sizes {groups}) "
+            f"{wall:.3f} s, finalize: {ok}")
         t0 = time.perf_counter()
         extra = [(sighash_name[id(c["data"])], c["proofs"][0])
                  for c in sig_calls if sighash_name[id(c["data"])] in
@@ -1397,7 +1717,7 @@ def rollup_phase(dev, all_launches, zero_launches):
             f"block {block} ({time.perf_counter() - t0:.3f} s in worker "
             f"processes, {sum(verify_s[block]):.3f} s of verifying)")
         blocks.append({"block": block, "jobs": planned.num_jobs,
-                       "drain": drain, "wall_s": wall,
+                       "drain": drain, "backend": backend, "wall_s": wall,
                        "prove_batch_sizes": groups, "roots": roots,
                        "finalized": ok})
         if drain == "process_ready_batch" and max(groups) < 2:
@@ -1405,9 +1725,99 @@ def rollup_phase(dev, all_launches, zero_launches):
     agg_witness = rec.kept             # block 2's transfer aggregation
     log("check blocks 1 and 2: the reference's city roots, "
         "finalized, the transition proofs' public inputs the roots; block "
-        "2 proved a batch of more than one and its sighash chain, whose "
-        "final-GL public inputs are the host's felt248 of the old root and "
-        "felt252 of the sighash, before its completion notification")
+        "2 (sent to the node, planned by the orchestrator service, drained "
+        "over the networked store) proved a batch of more than one and its "
+        "sighash chain, whose final-GL public inputs are the host's "
+        "felt248 of the old root and felt252 of the sighash, and its "
+        "Groth16 wrap, before its completion notification")
+
+    # --- Groth16: the wrap's output in the store against the final-GL
+    # proof's public inputs, the proof through the verifier, tampered
+    # public inputs refused ----------------------------------------------------
+    (g16_job, g16_ms), = g16_jobs
+    raw_wrap = store.get_bytes(g16_job.output_proof_id())
+    stored = json.loads(raw_wrap)
+    fin_proof = decode_proof(store.get_proof(
+        l1_block.sighash_final_jobs[0].output_proof_id()))
+    pis = [int(x) for x in fin_proof.public_inputs]
+    want_pub = [*groth16_wrap.pack_state(pis),
+                groth16_wrap.binding_digest(pis, sht.final_fingerprint)]
+    if [int(x) for x in stored["public_inputs"]] != want_pub:
+        raise AssertionError(f"the Groth16 wrap's public inputs "
+                             f"{stored['public_inputs']} != {want_pub}")
+    wrapped, = g16_rec.results
+    if wrapped["proof"].to_city_data() != stored["proof_data"] or \
+            [len(bytes.fromhex(v)) for v in stored["proof_data"].values()] \
+            != [48] * 4:
+        raise AssertionError("the stored Groth16 proof data is not the "
+                             "wrap's four 48-byte fields")
+    t = time.perf_counter()
+    if not groth16.verify(sht.groth16.vk, want_pub, wrapped["proof"]):
+        raise AssertionError("groth16.verify rejects the block's wrap")
+    g16_check_s = time.perf_counter() - t
+    for i in range(3):
+        bad = list(want_pub)
+        bad[i] ^= 1
+        if groth16.verify(sht.groth16.vk, bad, wrapped["proof"]):
+            raise AssertionError(f"groth16.verify accepts the wrap with "
+                                 f"public input {i} changed")
+    r1cs = sht.groth16.r1cs
+    groth16_line = {
+        "constraints": len(r1cs.a_rows), "variables": r1cs.num_vars,
+        "public_inputs": r1cs.num_public, "setup_s": g16_rec.setup_s,
+        "job_s": g16_ms / 1e3, **wrapped["times"],
+        "check_verify_s": g16_check_s}
+    log(f"check the Groth16 wrap ({len(r1cs.a_rows)} constraints; setup "
+        f"{g16_rec.setup_s:.3f} s, the job {g16_ms / 1e3:.3f} s: final-GL "
+        f"host verify {wrapped['times']['gl_verify_s']:.3f} s, prove "
+        f"{wrapped['times']['prove_s']:.3f} s, verify "
+        f"{wrapped['times']['verify_s']:.3f} s): its public inputs are the "
+        f"host's pack_state and binding_digest of the final GL's, "
+        f"groth16.verify accepts it ({g16_check_s:.3f} s) and rejects each "
+        f"public input changed")
+
+    # --- L1: the block transaction assembled from the wrap ------------------
+    link = MemoryBTCLink()
+    refusal = None
+    try:
+        l1_orch.assemble_l1_transaction(l1_block, link=link)
+    except RuntimeError as e:
+        refusal = str(e)
+    if refusal is None or "refusing to broadcast" not in refusal:
+        raise AssertionError("assemble_l1_transaction broadcasts without a "
+                             "dev-mode flag")
+    groth16_wrap.GROTH16_WRAP_ATTESTATION_DEV_MODE = True
+    try:
+        block_tx = l1_orch.assemble_l1_transaction(l1_block, link=link)
+    finally:
+        groth16_wrap.GROTH16_WRAP_ATTESTATION_DEV_MODE = False
+    script = block_tx.inputs[0].script
+    if script[0] != 48 or script[1:49] != bytes.fromhex(
+            stored["proof_data"]["pi_a"]) or not script.endswith(
+            btc.push_data(l1_block.covenant_script)):
+        raise AssertionError("the block transaction's input script is not "
+                             "the wrap's pushes and the covenant script")
+    if link.get_transaction(block_tx.txid()) is not block_tx or \
+            btc.BTCTransaction.parse(block_tx.serialize()).txid() != \
+            block_tx.txid():
+        raise AssertionError("the link does not hold the block transaction")
+    log(f"check assemble_l1_transaction: refused without a dev-mode flag; "
+        f"with GROTH16_WRAP_ATTESTATION_DEV_MODE the block transaction "
+        f"({len(block_tx.serialize())} bytes, input script "
+        f"{len(script)} bytes: the wrap's pushes, the covenant script) is "
+        f"broadcast on the MemoryBTCLink")
+
+    # --- queries through the node, forwarded to the api server --------------
+    provider = services.pop("provider")
+    if provider.get_city_root(2) != GOLDEN_BLOCK_ROOTS[1][1]:
+        raise AssertionError("the api server's city root of block 2 is not "
+                             "the reference's")
+    if provider.get_proof_store_value(g16_job.output_proof_id().hex()) != \
+            raw_wrap.hex():
+        raise AssertionError("the api server's Groth16 output is not the "
+                             "worker's")
+    log("check the node, forwarding to the api server, answers block 2's "
+        "city root and the Groth16 job's stored output")
 
     # --- refused: a final GL whose spend index is not the wrapper's --------
     t0 = time.perf_counter()
@@ -1517,9 +1927,43 @@ def rollup_phase(dev, all_launches, zero_launches):
     with ProveRecorder(prover, circuit) as srec:
         signed_proof = prover.prove(signed_op, pw)
     signed_prove_s = time.perf_counter() - t1
+    # the user-prover service over the same ZK wrapper (a thread of this
+    # process; its worker thread proves on the card): the public key, the
+    # withdrawal action signed through cr_proveZkSignature / cr_getProof,
+    # the same job id for the same request
+    t1 = time.perf_counter()
+    up = make_user_prover_server(zkw)
+    up.start_background()
+    fleet.callback(up.shutdown)
+    services["start_s"]["user-prover"] = time.perf_counter() - t1
+    if rpc_call(up.url, "cr_getZkPublicKey", [SIGNER_SK]) != \
+            derive_public_key(SIGNER_SK):
+        raise AssertionError("the user prover's public key is not "
+                             "derive_public_key's")
+    action = [int(x) for x in actions["withdrawal"]]
+    t1 = time.perf_counter()
+    up_job = rpc_call(up.url, "cr_proveZkSignature", [SIGNER_SK, action])
+    while (st := rpc_call(up.url, "cr_getProof", [up_job]))["status"] == \
+            "pending":
+        if time.perf_counter() - t1 > 600:
+            raise AssertionError("the user prover took over 600 s")
+        time.sleep(0.1)
+    up_s = time.perf_counter() - t1
+    if st["status"] != "done":
+        raise AssertionError(f"the user prover failed: {st}")
+    up_proof = decode_proof(bytes.fromhex(st["proof"]))
+    if list(up_proof.public_inputs) != list(pk) + action:
+        raise AssertionError("the user prover's proof does not sign pk || "
+                             "the withdrawal action")
+    if rpc_call(up.url, "cr_proveZkSignature", [SIGNER_SK, action]) != \
+            up_job:
+        raise AssertionError("the same request to the user prover makes "
+                             "another job")
+    services["user_prover_sign_s"] = up_s
     checks = [(f"the wallet's {name} signature", zkw.data, proof)
               for name, proof in sigs.items()]
     checks.append(("the signed transfer's proof", signed_op, signed_proof))
+    checks.append(("the user prover's signature", zkw.data, up_proof))
     for (what, *_), (ok, _) in zip(checks, in_forked_processes(
             lambda c: verifier.verify(c[2], c[1].common, c[1].verifier),
             checks)):
@@ -1555,7 +1999,9 @@ def rollup_phase(dev, all_launches, zero_launches):
         f"{signatures['signed_transfer']['log_n']}, "
         f"{signatures['signed_transfer']['rows']} rows) proves in "
         f"{signed_prove_s:.3f} s and verifies; under another key: no "
-        f"witness ({wrong_key[:60]}...) ({signatures_s:.3f} s)")
+        f"witness ({wrong_key[:60]}...); the user-prover service signs the "
+        f"withdrawal ({up_s:.3f} s), its proof verifies, the same request "
+        f"gives the same job ({signatures_s:.3f} s)")
 
     # --- kernel times at this path's shapes (B = 1: 2^14 to 2^17 rows) ------
     kernel_times = []
@@ -1611,7 +2057,10 @@ def rollup_phase(dev, all_launches, zero_launches):
             "sighash": {"gid": list(SIGHASH_GID), "circuits": sig_shapes,
                         "jobs": sighash_jobs, "refuse_s": refuse_s,
                         "launches": sig_counted},
-            "signatures": signatures}
+            "signatures": signatures, "groth16": groth16_line,
+            "services": dict(services, rpc_calls=rpc_calls.calls,
+                             store_calls=wire.calls,
+                             store_hex_bytes=wire.hex_bytes)}
     return line, kernel_times, counted, sig_counted
 
 
@@ -1695,7 +2144,7 @@ def main() -> int:
     # over the batch; 25: one streamed slab; the input 2^rate_bits times
     # shorter, scaled by shift^j and padded inside K1), and FRI's final
     # coset_intt (inverse, scaled by n^-1 shift^-k inside K2): log_m 8 in
-    # the single proof (batch 1) and the B = 8 batch, log_m 5 in the golden
+    # the single proof (batch 1) and the batch of 8, log_m 5 in the golden
     # proof; and an intt (n^-1 only)
     def check_k1k2(log_m, batch, log_in, mode, label=""):
         """K1 then K2 against their plain versions on one transform."""
@@ -1719,8 +2168,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     for log_m, batch, log_in, mode in [
-            (14, 3, 11, "coset_lde"), (23, 1, 20, "coset_lde"),
-            (23, 64, 20, "coset_lde"), (25, 8, 22, "coset_lde"),
+            (14, 3, 11, "coset_lde"),
+            (FRI_LOG_N + RATE_BITS, 1, FRI_LOG_N, "coset_lde"),
+            (ONE_SHOT_LOG_N + RATE_BITS, 64, ONE_SHOT_LOG_N, "coset_lde"),
+            (25, 8, 22, "coset_lde"),
             (8, 1, 8, "coset_intt"),
             (8, 8, 8, "coset_intt"), (5, 1, 5, "coset_intt"),
             (14, 3, 14, "intt"),
@@ -1759,7 +2210,7 @@ def main() -> int:
         x = with_edges(rand((n, 1 << 14)))
         require_equal(cp.sponge_t(x), cp.sponge_t_plain(x),
                       f"poseidon_sponge n={n}")
-    # the prove path's leaf widths, over the leaves of a batch of 8
+    # the prove path's leaf widths, over the leaves of a PROVE_BATCH batch
     # (2^18) and of the constants/sigmas tree (2^15)
     for n, cols in [(w, PROVE_BATCH << 15) for w in PROVE_LEAF_WIDTHS] + \
             [(width_s, 1 << 15)]:
@@ -1770,7 +2221,8 @@ def main() -> int:
     # K4's Merkle-level entry reads the (4, 2B) children in place: against
     # the plain two_to_one of the strided slices, with edge values and at
     # the one-shot commit's leaf level, and against the sponge entry
-    for x in (with_edges(rand((4, 1 << 15))), rand((4, 1 << 23))):
+    for x in (with_edges(rand((4, 1 << 15))),
+              rand((4, 1 << (ONE_SHOT_LOG_N + RATE_BITS)))):
         got = cp.reduce_level_t(x)
         require_equal(got, cp.reduce_level_t_plain(x),
                       f"poseidon_sponge level entry {tuple(x.shape)}")
@@ -1826,14 +2278,15 @@ def main() -> int:
                 counts[key] = 0
 
     # --- the commit path, once, counted --------------------------------------
-    c20 = rand((64, 1 << 20))
+    c_one = rand((64, 1 << ONE_SHOT_LOG_N))
     c22 = rand((64, 1 << 22))
     zero_launches()
     torch.cuda.reset_peak_memory_stats()
     caps = {}
     before = all_launches()
     for name, fn, x in [
-            ("lde_commit 2^20 x 64", pipeline.lde_commit, c20),
+            (f"lde_commit 2^{ONE_SHOT_LOG_N} x 64", pipeline.lde_commit,
+             c_one),
             ("lde_commit_streamed 2^22 x 64", pipeline.lde_commit_streamed,
              c22)]:
         t0 = time.perf_counter()
@@ -1856,7 +2309,8 @@ def main() -> int:
 
     # second calls: warm times, outside the counted run
     for name, fn, x in [
-            ("lde_commit 2^20 x 64", pipeline.lde_commit, c20),
+            (f"lde_commit 2^{ONE_SHOT_LOG_N} x 64", pipeline.lde_commit,
+             c_one),
             ("lde_commit_streamed 2^22 x 64", pipeline.lde_commit_streamed,
              c22)]:
         torch.cuda.synchronize()
@@ -1869,35 +2323,38 @@ def main() -> int:
             raise AssertionError(f"{name}: second call differs")
     del c22
     t0 = time.perf_counter()
-    streamed20 = pipeline.lde_commit_streamed(
-        c20, log_n=20, rate_bits=RATE_BITS, cap_height=CAP_HEIGHT)
+    streamed_one = pipeline.lde_commit_streamed(
+        c_one, log_n=ONE_SHOT_LOG_N, rate_bits=RATE_BITS,
+        cap_height=CAP_HEIGHT)
     torch.cuda.synchronize()
-    log(f"phase lde_commit_streamed 2^20 x 64 "
+    log(f"phase lde_commit_streamed 2^{ONE_SHOT_LOG_N} x 64 "
         f"{time.perf_counter() - t0:.6f} s")
-    if not torch.equal(streamed20, caps["lde_commit 2^20 x 64"]):
-        raise AssertionError("streamed != one-shot at 2^20 x 64")
-    log("check lde_commit_streamed == lde_commit at 2^20 x 64")
-    del c20, caps, streamed20, again
+    if not torch.equal(streamed_one,
+                       caps[f"lde_commit 2^{ONE_SHOT_LOG_N} x 64"]):
+        raise AssertionError(f"streamed != one-shot at 2^{ONE_SHOT_LOG_N} "
+                             "x 64")
+    log(f"check lde_commit_streamed == lde_commit at 2^{ONE_SHOT_LOG_N} x 64")
+    del c_one, caps, streamed_one, again
     torch.cuda.empty_cache()
 
     # --- the FRI path, once, counted -----------------------------------------
     # ext codewords: the LDEs of random coefficient pairs, made before the
     # counted run
     cfg = fri.FriConfig()
-    log_n_fri, log_n_batch, batch = 20, 17, 8
-    cw23 = tuple(tn.coset_lde(rand((1 << log_n_fri,)), log_n_fri,
+    log_n_fri, log_n_batch, batch = FRI_LOG_N, 17, 8
+    cw_one = tuple(tn.coset_lde(rand((1 << log_n_fri,)), log_n_fri,
                               cfg.rate_bits) for _ in range(2))
     cw20 = tuple(tn.coset_lde(rand((batch, 1 << log_n_batch)), log_n_batch,
                               cfg.rate_bits) for _ in range(2))
-    log_m23 = log_n_fri + cfg.rate_bits
+    log_m_one = log_n_fri + cfg.rate_bits
     log_m20 = log_n_batch + cfg.rate_bits
     shift = 7
     zero_launches()
     torch.cuda.reset_peak_memory_stats()
     before = all_launches()
     fri_runs = [
-        (f"fri_prove log_m {log_m23}",
-         lambda: fri.fri_prove(cw23, log_m23, shift, cfg, Challenger())),
+        (f"fri_prove log_m {log_m_one}",
+         lambda: fri.fri_prove(cw_one, log_m_one, shift, cfg, Challenger())),
         (f"fri_prove_batch B={batch} log_m {log_m20}",
          lambda: fri.fri_prove_batch(cw20, log_m20, shift, cfg,
                                      [Challenger() for _ in range(batch)]))]
@@ -1915,9 +2372,10 @@ def main() -> int:
     log(f"FRI path launches {json.dumps(path_launches['fri'])}; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     require_launched(path_launches["fri"], FRI_KERNELS, "FRI")
-    proof23 = proofs[fri_runs[0][0]]
+    proof_one = proofs[fri_runs[0][0]]
     batch_proofs = proofs[fri_runs[1][0]]
-    if len(proof23.commit_caps) != 15 or len(proof23.final_poly) != 32 or \
+    if len(proof_one.commit_caps) != cfg.num_folds(log_n_fri) or \
+            len(proof_one.final_poly) != 1 << cfg.final_poly_bits or \
             len(batch_proofs) != batch:
         raise AssertionError("FRI proofs of the wrong shape")
 
@@ -1927,7 +2385,7 @@ def main() -> int:
     again = fri_runs[0][1]()
     torch.cuda.synchronize()
     log(f"phase {fri_runs[0][0]} {time.perf_counter() - t0:.6f} s (warm)")
-    if not convert.fri_proof_equal(again, proof23):
+    if not convert.fri_proof_equal(again, proof_one):
         raise AssertionError("fri_prove: second call differs")
     t0 = time.perf_counter()
     single = fri.fri_prove((cw20[0][0], cw20[1][0]), log_m20, shift, cfg,
@@ -1937,7 +2395,7 @@ def main() -> int:
     if not convert.fri_proof_equal(single, batch_proofs[0]):
         raise AssertionError("fri_prove_batch proof 0 != fri_prove alone")
     log(f"check fri_prove_batch proof 0 == fri_prove at log_m {log_m20}")
-    for name, proof, log_m in [(f"log_m {log_m23}", proof23, log_m23),
+    for name, proof, log_m in [(f"log_m {log_m_one}", proof_one, log_m_one),
                                (f"batch proof 0 log_m {log_m20}",
                                 batch_proofs[0], log_m20)]:
         t0 = time.perf_counter()
@@ -1946,12 +2404,12 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"fri_verify rejects the {name} proof")
         log(f"check fri_verify accepts the {name} proof")
-    c = proof23.final_poly[0]
-    proof23.final_poly[0] = ((c[0] + 1) % P, c[1])
-    if fri.fri_verify(proof23, log_m23, shift, cfg, Challenger()):
+    c = proof_one.final_poly[0]
+    proof_one.final_poly[0] = ((c[0] + 1) % P, c[1])
+    if fri.fri_verify(proof_one, log_m_one, shift, cfg, Challenger()):
         raise AssertionError("fri_verify accepts a tampered final poly")
     log("check fri_verify rejects a changed final-poly coefficient")
-    del cw23, cw20, proofs, proof23, batch_proofs, again, single
+    del cw_one, cw20, proofs, proof_one, batch_proofs, again, single
     torch.cuda.empty_cache()
 
     # --- golden snark proof ------------------------------------------------
@@ -2146,11 +2604,11 @@ def main() -> int:
     torch.cuda.synchronize()
     wrap_pre_s = time.perf_counter() - t0
     log(f"phase preprocess wrapper (S = {width_w}) {wrap_pre_s:.6f} s")
-    rec_runs, rec_proofs = [], {}
-    for name in ("wrap prove", "wrap prove warm"):
-        rec_proofs[name] = counted_prove(
-            name, wrap.data, [wrap_witness(leaf_proof)], rec_runs)[0]
-    wrap_proof = rec_proofs["wrap prove"]
+    # one wrap prove (a second, warm one was cut to fit the call's time;
+    # the prove path checks that a second call gives the same proof)
+    rec_runs = []
+    wrap_proof = counted_prove("wrap prove", wrap.data,
+                               [wrap_witness(leaf_proof)], rec_runs)[0]
     # the aggregation step admits the wrapper's proof by the fingerprint of
     # verifier data given as witness
     t0 = time.perf_counter()
@@ -2168,9 +2626,6 @@ def main() -> int:
     require_launched(path_launches["recursion"], PROVE_KERNELS, "recursion")
 
     # outside the counted run: the host verifier, public inputs, tampering
-    if convert.proof_to_plain(wrap_proof) != convert.proof_to_plain(
-            rec_proofs["wrap prove warm"]):
-        raise AssertionError("wrap prove: second call differs")
     rec_verify_s = {}
     for name, proof, data, vd in [("wrap", wrap_proof, wrap.data, wrap_vd),
                                   ("aggregation step", agg_proof, agg,
@@ -2229,13 +2684,14 @@ def main() -> int:
              "build_s": agg_build_s, "preprocess_s": agg_pre_s}],
         "runs": rec_runs, "verify_s": rec_verify_s,
         "launches": path_launches["recursion"]}
-    del wrap, agg, agg_b, rec_proofs, wrap_proof, agg_proof, wires, forged
+    del wrap, agg, agg_b, wrap_proof, agg_proof, wires, forged
     torch.cuda.empty_cache()
 
     # --- the rollup's block pipeline, counted --------------------------------
-    (rollup_line, rollup_kernels, path_launches["rollup"],
-     path_launches["sighash"]) = rollup_phase(dev, all_launches,
-                                              zero_launches)
+    with contextlib.ExitStack() as fleet:
+        (rollup_line, rollup_kernels, path_launches["rollup"],
+         path_launches["sighash"]) = rollup_phase(dev, all_launches,
+                                                  zero_launches, fleet)
     log(f"rollup path launches {json.dumps(path_launches['rollup'])}")
     require_launched(path_launches["rollup"], ROLLUP_KERNELS, "rollup")
     log(f"sighash path launches {json.dumps(path_launches['sighash'])}")
@@ -2319,7 +2775,7 @@ def main() -> int:
     # the whole coset LDE (K1 + K2) of one streamed slab and of the
     # one-shot commit, beside its byte bound (ntt_pair_bounds_ms)
     ldes = []
-    for lb, ln in [(8, 22), (64, 20)]:
+    for lb, ln in [(8, 22), (64, ONE_SHOT_LOG_N)]:
         c = rand((lb, 1 << ln))
         bound, fourstep = ntt_pair_bounds_ms(lb, 1 << ln,
                                              1 << (ln + RATE_BITS))
@@ -2332,21 +2788,23 @@ def main() -> int:
             f"{fourstep:.4f} ms)")
         del c
         torch.cuda.empty_cache()
-    # the leaf hash of the 2^20 x 64 one-shot commit
-    leaves = rand((64, 1 << 23))
+    # the leaf hash of the one-shot commit (64 x 2^ONE_SHOT_LOG_N)
+    log_m1 = ONE_SHOT_LOG_N + RATE_BITS
+    leaves = rand((64, 1 << log_m1))
     measure("poseidon_sponge", "city_rollup_tpu_torch/csrc/poseidon.cu",
             "city_rollup_tpu/core/pallas_poseidon.py:190",
             list(leaves.shape),
             lambda: cp.sponge_t(leaves), lambda: cp.sponge_t_plain(leaves), 3,
-            8 * (64 + 4) << 23, 8 * OPS_PERMUTATION << 23)
+            8 * (64 + 4) << log_m1, 8 * OPS_PERMUTATION << log_m1)
     del leaves
     # K4's Merkle-level entry at the one-shot commit's leaf level (its
     # launches count under poseidon_sponge)
-    level = rand((4, 1 << 23))
-    log(f"time poseidon_sponge level entry (4, 2^23): "
+    level = rand((4, 1 << log_m1))
+    log(f"time poseidon_sponge level entry (4, 2^{log_m1}): "
         f"{cuda_ms(lambda: cp.reduce_level_t(level), 20):.4f} ms")
     del level
-    # one slab absorb of the streamed commit at 2^20 x 64 (M = 2^23)
+    # one slab absorb at M = 2^23 (a streamed commit of 2^20 x 64: the
+    # shape timed since the first slice)
     state, slab = rand((12, 1 << 23)), rand((8, 1 << 23))
     measure("poseidon_absorb", "city_rollup_tpu_torch/csrc/poseidon.cu",
             "city_rollup_tpu/core/pallas_poseidon.py:207",
@@ -2364,7 +2822,7 @@ def main() -> int:
             20, 8 * (12 + 12) << 17, OPS_PERMUTATION << 17)
     del states
 
-    # K4 at the prove path's leaf widths (the B = 8 batch's 2^18 leaves, the
+    # K4 at the prove path's leaf widths (the PROVE_BATCH batch's leaves, the
     # constants/sigmas tree's 2^15), and K1 + K2 as its intt and coset LDE
     prove_kernels = []
     for label, n, cols in [("wires", 144, PROVE_BATCH << 15),

@@ -6,7 +6,9 @@ Counterpart of the reference's ``crypto/``: copies of ``hashes.py``,
 in-circuit gadgets (``snark/sha256.py``, ``snark/ripemd160.py``,
 ``snark/secp_gadgets.py``) are held against, and of ``qhashout.py`` (the
 QHashOut digest and felt248/felt252 packing the rollup's sighash finalizer
-uses). ``bls12_381.py`` and ``groth16.py`` come with the Groth16 wrap.
+uses), and of ``bls12_381.py`` and ``groth16.py`` (the pairing curve and
+the Groth16 system under the block's Groth16 wrap, python ints). Import
+those two by module: nothing here loads them.
 """
 
 from .hashes import (Hash160, Hash256, hash160, hash256, ripemd160, sha256,

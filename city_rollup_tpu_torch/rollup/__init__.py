@@ -7,7 +7,8 @@ Counterpart of the reference's ``rollup/``: the in-memory block pipeline
 orchestrator, qbench), the block's L1 binding (the SHA256 accelerator,
 the sighash introspection circuits, the whitelist, the sighash wrapper
 and final-GL circuits, the corpus and the sighash toolbox) and the user
-signatures (ZK and L1 signature circuits, wallets). Still missing: the
-Groth16 wrap (``groth16_wrap.py``, ROADMAP A12c) and the network
-services (``netstore.py``, ``link.py`` and the servers, A12d).
+signatures (ZK and L1 signature circuits, wallets), the Groth16 wrap
+statement (``groth16_wrap.py``), the L1 link (``link.py``) and the
+networked proof store and queues (``netstore.py``) that the services
+(``services/``) and the CLI's fleet subcommands run over.
 """

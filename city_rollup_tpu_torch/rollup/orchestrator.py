@@ -13,8 +13,15 @@ Odd aggregation levels are padded with dummy (identity-transition) leaf
 jobs instead of the reference's carried-up nodes — same proofs-per-level
 shape, simpler ID arithmetic.
 
-Counterpart of the reference's ``rollup/orchestrator.py``: a copy, apart
-from ``assemble_l1_transaction``, which waits for the Groth16 wrap.
+Counterpart of the reference's ``rollup/orchestrator.py``: a copy, with one
+repair in the L1 context's job DAG. The reference installs each input's
+sighash edges under its jobs' group counter (``counter_id()``: task index
+0), so every input's edge lands on input 0's counter, and the Groth16 edge
+(final GL -> wrap) on the final GL's join counter: a block with more than
+one input or with the Groth16 wrap never releases all its jobs, nor its
+completion notification. Here each input's edges have counters of their
+own (``_input_counter``); for one input without the wrap they are the
+reference's.
 """
 
 from __future__ import annotations
@@ -222,6 +229,13 @@ def make_genesis_block_tx(cfg: btc.BlockSpendCoreConfig, script_body: bytes,
             value=balance,
             script=btc.p2sh_script(btc.p2sh_address_of(script)))],
         locktime=cfg.locktime)
+
+
+def _input_counter(job: JobID) -> JobID:
+    """The counter cell of one L1 input's edge: `job`'s group counter at
+    the job's own task index (the input's), so that inputs do not share
+    it."""
+    return dataclasses.replace(job.counter_id(), task_index=job.task_index)
 
 
 class Orchestrator:
@@ -585,9 +599,10 @@ class Orchestrator:
                 "transition": planned.final_job.hex(),
                 "wrapper": swrap.hex(), "cur_bal": cur_bal,
                 "next_bal": next_bal, "spend_idx": i}))
-            self.store.write_next_jobs([intro], [swrap])
+            self.store.write_next_jobs([intro], [swrap],
+                                       counter_id=_input_counter(intro))
             self.store.write_next_jobs([planned.final_job, swrap], [fin],
-                                       counter_id=fin.counter_id())
+                                       counter_id=_input_counter(fin))
             planned.leaf_jobs.append(intro)
             planned.sighash_final_jobs.append(fin)
             planned.num_jobs += 3
@@ -598,7 +613,8 @@ class Orchestrator:
                             group_id=113, task_index=i)
                 self.store.set_bytes(g16.input_witness_id(),
                                      encode_witness({"final": fin.hex()}))
-                self.store.write_next_jobs([fin], [g16])
+                self.store.write_next_jobs([fin], [g16],
+                                           counter_id=_input_counter(g16))
                 planned.groth16_jobs.append(g16)
                 planned.num_jobs += 1
                 terminals.append(g16)
@@ -616,13 +632,42 @@ class Orchestrator:
                                 verifier_data: bytes = b"",
                                 link=None) -> btc.BTCTransaction:
         """Read the per-input CityGroth16ProofData from the proof store,
-        build the P2SH witness scripts and fill the block transaction's
-        input scripts (reference ``rollup/orchestrator.py``). It needs
-        ``rollup/groth16_wrap.py``, which comes with the port's Groth16
-        slice (ROADMAP A12c)."""
-        raise NotImplementedError(
-            "assemble_l1_transaction needs rollup/groth16_wrap.py, which "
-            "comes with the port's Groth16 slice (ROADMAP A12c)")
+        build the P2SH witness scripts (proof pushes + verifier data + the
+        covenant redeem script), fill the block transaction's input
+        scripts, and broadcast via the L1 link if given."""
+        import json as _json
+        from . import groth16_wrap as g16
+        assert planned.block_tx is not None, "block planned without L1 ctx"
+        assert planned.groth16_jobs, "block planned without groth16 wraps"
+        if link is not None and not (g16.GROTH16_DISABLED_DEV_MODE
+                                     or g16.GROTH16_WRAP_ATTESTATION_DEV_MODE):
+            raise RuntimeError(
+                "refusing to broadcast: the Groth16 wrap statement is an "
+                "attestation (no in-R1CS Goldilocks verification) and MUST "
+                "NOT be relied on for on-chain security; set "
+                "groth16_wrap.GROTH16_WRAP_ATTESTATION_DEV_MODE = True to "
+                "acknowledge, or GROTH16_DISABLED_DEV_MODE for OP_NOP mode")
+        new_inputs = []
+        for i, inp in enumerate(planned.block_tx.inputs):
+            raw = self.store.get_bytes(
+                planned.groth16_jobs[i].output_proof_id())
+            assert raw is not None, f"missing groth16 wrap for input {i}"
+            pd = _json.loads(raw.decode())["proof_data"]
+            witness = btc.encode_binary_witness_script_for_p2sh(
+                planned.covenant_script,
+                [bytes.fromhex(pd["pi_a"]), bytes.fromhex(pd["pi_b_a0"]),
+                 bytes.fromhex(pd["pi_b_a1"]), bytes.fromhex(pd["pi_c"]),
+                 verifier_data])
+            new_inputs.append(btc.BTCTransactionInput(
+                hash=inp.hash, index=inp.index, script=witness,
+                sequence=inp.sequence))
+        final_tx = btc.BTCTransaction(
+            version=planned.block_tx.version, inputs=new_inputs,
+            outputs=planned.block_tx.outputs,
+            locktime=planned.block_tx.locktime)
+        if link is not None:
+            link.send_transaction(final_tx)
+        return final_tx
 
     # -- finalize ------------------------------------------------------------------
     def finalize(self, planned: PlannedBlock, toolbox) -> bool:

@@ -21,8 +21,8 @@ and assert every shape lands on the identical CommonData.
 
 Counterpart of the reference's ``rollup/sighash_toolbox.py``, on the
 port's prover: every circuit is built for one ``device``. The Groth16
-wrap (``with_groth16``, ``wrap_groth16``) comes with the port's Groth16
-slice (ROADMAP A12c).
+wrap (``with_groth16``, ``wrap_groth16``) is host work (python ints), as
+in the reference.
 """
 
 from __future__ import annotations
@@ -38,9 +38,6 @@ from . import btc
 from .sighash_circuit import SigHashCircuit, SigHashShape
 from .sighash_tree import SigHashMerkleTree
 from .sighash_wrapper import SigHashFinalGLCircuit, SigHashWrapperCircuit
-
-GROTH16_SLICE = ("the Groth16 wrap comes with the port's Groth16 slice "
-                 "(ROADMAP A12c, rollup/groth16_wrap.py)")
 
 
 def _gid_from_felt(felt: int) -> btc.SigHashGadgetId:
@@ -70,9 +67,9 @@ class SigHashToolbox:
     `transition_data` is the block-state-transition CircuitData (the final
     GL circuit verifies it under constant verifier data). Every circuit is
     built for `device` (CUDA unless ``"cpu"``), where its preprocessing
-    and proofs run. `with_groth16=True` (and `groth16_seed`,
-    `groth16_dev`) raises before anything is built: the Groth16 wrap comes
-    with the port's Groth16 slice (ROADMAP A12c)."""
+    and proofs run. `with_groth16=True` also builds the Groth16 wrap
+    statement over the final GL's fingerprint and runs its trusted setup
+    (an explicit `groth16_seed` needs `groth16_dev=True`)."""
 
     def __init__(self, config: CircuitConfig,
                  spend_cfg: btc.BlockSpendCoreConfig, script_body: bytes,
@@ -80,8 +77,6 @@ class SigHashToolbox:
                  with_groth16: bool = False,
                  groth16_seed: bytes | None = None,
                  groth16_dev: bool = False, device=None):
-        if with_groth16:
-            raise NotImplementedError(f"with_groth16: {GROTH16_SLICE}")
         self.config = config
         self.device = device
         self.spend_cfg = spend_cfg
@@ -121,11 +116,15 @@ class SigHashToolbox:
 
         # -- whitelist + wrapper + final GL ---------------------------------
         fps = [s.fingerprint for s in self.shapes.values()]
-        self._build_tail(fps, transition_data)
+        self._build_tail(fps, transition_data, with_groth16, groth16_seed,
+                         groth16_dev)
 
-    def _build_tail(self, fps: list, transition_data):
+    def _build_tail(self, fps: list, transition_data, with_groth16: bool,
+                    groth16_seed: bytes | None, groth16_dev: bool):
         """The whitelist over `fps`, the wrapper over the shared minified
-        shape and the final GL over (transition, wrapper)."""
+        shape, the final GL over (transition, wrapper) and, with
+        `with_groth16`, the Groth16 wrap over the final GL's
+        fingerprint."""
         self.whitelist = SigHashMerkleTree.build(fps)
         self.wrapper = SigHashWrapperCircuit.build(
             self.config, self.minified_common, self.whitelist,
@@ -136,6 +135,11 @@ class SigHashToolbox:
         self.final_fingerprint = tuple(
             fingerprint_verifier_data(self.final_gl.data.verifier))
         self.groth16 = None
+        if with_groth16:
+            from .groth16_wrap import Groth16WrapCircuit
+            self.groth16 = Groth16WrapCircuit.build(
+                self.final_fingerprint, setup_seed=groth16_seed,
+                dev_deterministic=groth16_dev)
 
     @classmethod
     def from_corpus(cls, config: CircuitConfig, corpus, transition_data,
@@ -152,8 +156,6 @@ class SigHashToolbox:
         circuits cached per config on demand (sighash_wrapper_config.rs:24,
         sighash_wrapper.rs:58,129-160)."""
         from . import sighash_corpus as sc
-        if with_groth16:
-            raise NotImplementedError(f"with_groth16: {GROTH16_SLICE}")
         self = cls.__new__(cls)
         self.config = config
         self.device = device
@@ -170,7 +172,8 @@ class SigHashToolbox:
         self.minified_common = mini0.data.common
         self._shared_shape_key = common_shape_key(self.minified_common)
         self._build_tail([corpus.fps[k] for k in sorted(corpus.fps)],
-                         transition_data)
+                         transition_data, with_groth16, groth16_seed,
+                         groth16_dev)
         return self
 
     # -- proving -------------------------------------------------------------
@@ -214,4 +217,7 @@ class SigHashToolbox:
 
     def wrap_groth16(self, final_proof: Proof) -> dict:
         """WRAP_FINAL_SIGHASH_PROOF_BLS12381 job -> CityGroth16ProofData."""
-        raise NotImplementedError(f"wrap_groth16: {GROTH16_SLICE}")
+        from .groth16_wrap import wrap_final_proof
+        assert self.groth16 is not None, "toolbox built without groth16"
+        return wrap_final_proof(self.groth16, self.final_gl.data,
+                                final_proof)

@@ -220,8 +220,9 @@ def test_standalone_op_proof_passes_the_references_verifier():
 def test_toolbox_takes_a_device_and_refuses_signatures():
     """The toolbox builds lazily on its device; since the signature slice
     it no longer refuses `with_signatures` (it builds the ZK wrapper on
-    that device), and what it still refuses is the Groth16 wrap of the
-    sighash chain, before anything is built."""
+    that device). Since the Groth16 slice the sighash toolbox takes
+    `with_groth16` too, and what it refuses is to wrap a final-GL proof
+    when it was built without the wrap (as the reference's does)."""
     from city_rollup_tpu_torch.rollup.sighash_toolbox import SigHashToolbox
     tb = circuits.CircuitToolbox(small_params(oc, CircuitConfig,
                                              fri.FriConfig), device="cpu")
@@ -231,6 +232,7 @@ def test_toolbox_takes_a_device_and_refuses_signatures():
                                      with_signatures=True, device="cpu")
     assert signed.params.sig_wrapper is signed.zk_wrapper.data
     assert signed._family_a is None
-    with pytest.raises(NotImplementedError, match="Groth16"):
-        SigHashToolbox(circuits.FAST_TEST_CONFIG, None, b"", [], None,
-                       with_groth16=True, device="cpu")
+    without = SigHashToolbox.__new__(SigHashToolbox)
+    without.groth16 = None
+    with pytest.raises(AssertionError, match="without groth16"):
+        without.wrap_groth16(None)

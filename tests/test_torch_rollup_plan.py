@@ -160,8 +160,12 @@ def test_enqueue_dispatches_the_leaf_jobs(plans):
 
 
 def test_assemble_l1_transaction_waits_for_the_groth16_slice(plans):
+    """Since the Groth16 slice the port assembles a block's L1 transaction
+    (tests/test_torch_l1.py); a block planned without an L1 context, as the
+    demo block is, has none to assemble, and is refused as the reference
+    refuses it."""
     (port, _, _), _ = plans
     orch = om.Orchestrator(None, MemoryProofStore(), QueueHub(),
                            params=DEFAULT_PARAMS)
-    with pytest.raises(NotImplementedError, match="groth16"):
+    with pytest.raises(AssertionError, match="without L1 ctx"):
         orch.assemble_l1_transaction(port[0])
