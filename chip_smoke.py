@@ -110,7 +110,19 @@ In order, it:
      2's city root and the wrap's stored bytes; and a signature is proved
      through the user-prover service and verified. Every service is
      stopped at the end, on failure too;
- 10. times each kernel, its plain version and its bound, and the whole
+ 10. the parallel path (city_rollup_tpu_torch.parallel, parallel_phase)
+     at world size 1 over NCCL, last, since nothing may fork or start a
+     process while its process group is live: K1/K2 and K4 held and timed
+     at its shapes, then, with every launch count set to 0, dist_lde_commit
+     of a degree-2^20 polynomial to 2^23 points (leaves of 8, cap 2^4),
+     dist_batched_coset_lde then dist_merkle_cap at 2^20 x 64, dist_ntt at
+     2^23 and prove_batch(mesh=) of the prove path's circuit at B =
+     PROVE_BATCH; each held bit for bit against the single-device result
+     (coset_lde + MerkleTree, coset_lde and lde_commit, ntt), the proofs
+     field for field against the prove path's batch, with the group's
+     set-up time, each call's time beside the single-device call's, the
+     mesh prove's steps and the proofs' gather, and the peak device memory;
+ 11. times each kernel, its plain version and its bound, and the whole
      coset LDE of one streamed slab and of the one-shot input against its
      byte bound, and K4, K1 and K2 at the prove and recursion paths'
      shapes (K1 + K2 against the transform's bound: its input read once,
@@ -120,7 +132,7 @@ and prints one JSON line of the prove path, one of the recursion path, one
 of the rollup path (per job: circuit, rows, log_n, wall time, witness
 share, peak device memory; the builds, blocks and verifies; the sighash
 circuits and jobs; the signatures; the Groth16 wrap; the services), one
-of the
+of the parallel path, one of the
 LDE, prove-path, recursion-path and rollup-path kernel times, one of
 kernels,
 then as its last line
@@ -513,6 +525,14 @@ def require_equal(got, want, what: str) -> None:
         raise AssertionError(f"{what}: kernel disagrees with its plain "
                              f"version (max abs err {err})")
     log(f"check {what}: bit for bit")
+
+
+def card_felts(gen: torch.Generator, shape) -> torch.Tensor:
+    """Canonical random felts made on gen's device (hi < 2^32 - 1)."""
+    lo = torch.randint(0, 1 << 32, shape, generator=gen, device=gen.device)
+    hi = torch.randint(0, (1 << 32) - 1, shape, generator=gen,
+                       device=gen.device)
+    return (hi << 32) | lo
 
 
 def require_launched(launches: dict, names, path: str) -> None:
@@ -1183,11 +1203,7 @@ def rollup_phase(dev, all_launches, zero_launches, fleet):
     gen.manual_seed(1)
 
     def rand(shape):
-        """Canonical random felts made on the card (hi < 2^32 - 1)."""
-        lo = torch.randint(0, 1 << 32, shape, generator=gen, device=dev)
-        hi = torch.randint(0, (1 << 32) - 1, shape, generator=gen,
-                           device=dev)
-        return (hi << 32) | lo
+        return card_felts(gen, shape)
 
     edge = [0, 1, P - 1, (1 << 32) - 1, 1 << 32, 1 << 63]
 
@@ -2064,6 +2080,292 @@ def rollup_phase(dev, all_launches, zero_launches, fleet):
     return line, kernel_times, counted, sig_counted
 
 
+# The parallel path (torch.distributed, world size 1 on one card): one
+# polynomial's coset LDE + commit at the FRI codeword scale (degree 2^20 ->
+# 2^23 points, leaves of PARALLEL_LEAF_WIDTH consecutive values, cap 2^4),
+# BASELINE's config 2 (64 polynomials of 2^20) as a batched LDE and a
+# sharded cap, and one NTT of 2^23. It runs the local transforms (K1, K2)
+# and the leaf hashes and tree levels (K4); its caps never go through
+# two_to_one (K3).
+PARALLEL_LOG_N = 20
+PARALLEL_LEAF_WIDTH = 8
+PARALLEL_POLYS = 64
+PARALLEL_NTT_LOG_N = 23
+PARALLEL_KERNELS = ("ntt_fourstep_tw", "ntt_block", "poseidon_sponge")
+
+
+def parallel_phase(dev, all_launches, zero_launches, prove_data, prove_pws,
+                   prove_plain, prove_s):
+    """The parallel path on the card at world size 1 (NCCL; the rendezvous
+    a FileStore in a temporary directory): K1/K2 and K4 held against their
+    plain versions at the path's shapes and timed there, the single-device
+    results made,
+    then the group set up and, with every launch count set to 0,
+    dist_lde_commit, dist_batched_coset_lde then dist_merkle_cap, dist_ntt
+    and prove_batch(mesh=) of the prove path's full-width circuit at B =
+    PROVE_BATCH (the prove phase's witnesses); each result held bit for bit
+    against the single-device one, the proofs field for field against the
+    prove phase's batch (prove_plain, proved in prove_s). With one rank the
+    all-to-alls and gathers are local copies. The group is destroyed at the
+    end, on failure too. Returns (the parallel JSON line, the path's
+    launches)."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from city_rollup_tpu_torch import convert, pipeline
+    from city_rollup_tpu_torch.core import cuda_ntt as cn
+    from city_rollup_tpu_torch.core import cuda_poseidon as cp
+    from city_rollup_tpu_torch.core import merkle
+    from city_rollup_tpu_torch.core import ntt as tn
+    from city_rollup_tpu_torch.parallel import (dist_merkle, dist_ntt,
+                                                dist_pipeline)
+    from city_rollup_tpu_torch.parallel import mesh as mesh_mod
+    from city_rollup_tpu_torch.snark import prover
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+
+    def rand(shape):
+        return card_felts(gen, shape)
+
+    def ends(x, n, dim):
+        """The first and last n entries of x along dim."""
+        return torch.cat([x.narrow(dim, 0, n),
+                          x.narrow(dim, x.shape[dim] - n, n)], dim=dim)
+
+    log_n, log_m = PARALLEL_LOG_N, PARALLEL_LOG_N + RATE_BITS
+    log_r, log_c = dist_ntt._split_logs(log_m)
+    if dist_ntt._split_logs(PARALLEL_NTT_LOG_N) != (log_r, log_c):
+        raise AssertionError("the parallel path's transforms differ in shape")
+
+    # --- K1/K2 and K4 at the path's shapes: each kernel on the whole input,
+    # its plain version on the first and last 8 rows (K1, K2) or 4096
+    # columns (K4) ------------------------------------------------------------
+    t0 = time.perf_counter()
+    for log_t, rows, log_in, pre, what in [
+            (log_r, 1 << log_c, log_r, None, "column NTTs"),
+            (log_c, 1 << log_r, log_c, None, "row NTTs"),
+            (log_m, PARALLEL_POLYS, log_n,
+             tn._coset_table(log_n, 7, dev), "batched coset LDE")]:
+        x = rand((rows, 1 << log_in))
+        x[:, 0], x[:, 1], x[:, 2] = 0, P - 1 - (1 << 64), 1 << 32
+        log_n2 = cn._split(log_t)
+        where = f"({rows}, 2^{log_in}) -> 2^{log_t} (parallel {what})"
+        y = cn._k1(x, log_t, log_n2, pre)
+        require_equal(ends(y, 8, 0),
+                      cn._k1_plain(ends(x, 8, 0), log_t, log_n2, pre),
+                      f"ntt_fourstep_tw {where}")
+        require_equal(ends(cn._k2(y, log_t, log_n2), 8, 0),
+                      cn._k2_plain(ends(y, 8, 0), log_t, log_n2),
+                      f"ntt_block {where}")
+        del x, y
+    for n, cols, what in [
+            (PARALLEL_LEAF_WIDTH, (1 << log_m) // PARALLEL_LEAF_WIDTH,
+             "LDE + commit leaves"),
+            (PARALLEL_POLYS, 1 << log_m, "sharded cap leaves")]:
+        x = rand((n, cols))
+        require_equal(ends(cp.sponge_t(x), 4096, 1),
+                      cp.sponge_t_plain(ends(x, 4096, 1)),
+                      f"poseidon_sponge n={n} at {cols} leaves (parallel "
+                      f"{what}, both ends)")
+    level = rand((4, 1 << log_m))
+    got = cp.reduce_level_t(level)
+    require_equal(ends(got, 4096, 1),
+                  torch.cat([cp.reduce_level_t_plain(level[:, :8192]),
+                             cp.reduce_level_t_plain(level[:, -8192:])], 1),
+                  f"poseidon_sponge level entry (4, 2^{log_m}) (parallel, "
+                  f"both ends)")
+    del x, level, got
+    # their times at those shapes: K1 + K2 as the local transforms, against
+    # the transform's byte bound; K4 on both leaf matrices (the plain
+    # version timed on the smaller)
+    kernel_times = []
+    for rows, log_t, what in [(1 << log_c, log_r, "column NTTs"),
+                              (1 << log_r, log_c, "row NTTs")]:
+        x = rand((rows, 1 << log_t))
+        ms = cuda_ms(lambda: tn.ntt(x, log_t), 20)
+        bound, fourstep = ntt_pair_bounds_ms(rows, 1 << log_t, 1 << log_t)
+        kernel_times.append({
+            "name": "ntt_fourstep_tw + ntt_block", "what": what,
+            "shape": [rows, 1 << log_t], "ms": ms, "bound_ms": bound,
+            "bound_by": "bytes", "fourstep_bytes_ms": fourstep})
+        log(f"time parallel {what} ntt ({rows}, 2^{log_t}): {ms:.4f} ms, "
+            f"byte bound {bound:.4f} ms (four-step {fourstep:.4f} ms)")
+    for n, cols, what, time_plain in [
+            (PARALLEL_LEAF_WIDTH, (1 << log_m) // PARALLEL_LEAF_WIDTH,
+             "LDE + commit leaves", True),
+            (PARALLEL_POLYS, 1 << log_m, "sharded cap leaves", False)]:
+        x = rand((n, cols))
+        t_bytes = 8 * (n + 4) * cols / MEM_BYTES_PER_S * 1e3
+        t_ops = -(-n // 8) * OPS_PERMUTATION * cols / OPS_PER_S * 1e3
+        plain_ms = None
+        if time_plain:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cp.sponge_t_plain(x)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t) * 1e3
+        ms = cuda_ms(lambda: cp.sponge_t(x), 5)
+        kernel_times.append({
+            "name": "poseidon_sponge", "what": what, "shape": [n, cols],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        log(f"time parallel poseidon_sponge {what} ({n}, {cols}): {ms:.4f} "
+            f"ms, plain {plain_ms} ms, bound {max(t_bytes, t_ops):.4f} ms")
+    del x
+    torch.cuda.empty_cache()
+    log(f"phase parallel kernel checks and times "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # --- the single-device results, before the group -------------------------
+    c_one = rand((1 << log_n,))
+    c_polys = rand((PARALLEL_POLYS, 1 << log_n))
+    c_ntt = rand((1 << PARALLEL_NTT_LOG_N,))
+
+    def single_lde_commit():
+        lde = tn.coset_lde(c_one, log_n, RATE_BITS)
+        return lde, merkle.MerkleTree(lde.reshape(-1, PARALLEL_LEAF_WIDTH),
+                                      CAP_HEIGHT).cap
+
+    # name -> (what, the single-device call); each returns (LDE or
+    # evaluations, cap or None)
+    calls = {
+        "dist_lde_commit": (
+            f"coset LDE 2^{log_n} -> 2^{log_m} + cap of "
+            f"{PARALLEL_LEAF_WIDTH}-value leaves (coset_lde + MerkleTree)",
+            single_lde_commit),
+        "dist_batched_coset_lde + dist_merkle_cap": (
+            f"({PARALLEL_POLYS}, 2^{log_n}) coset LDE + cap (coset_lde, "
+            f"lde_commit)",
+            lambda: (tn.coset_lde(c_polys, log_n, RATE_BITS),
+                     pipeline.lde_commit(c_polys, log_n=log_n,
+                                         rate_bits=RATE_BITS,
+                                         cap_height=CAP_HEIGHT,
+                                         device=dev))),
+        "dist_ntt": (f"ntt 2^{PARALLEL_NTT_LOG_N} (ntt)",
+                     lambda: (tn.ntt(c_ntt, PARALLEL_NTT_LOG_N), None))}
+    single, single_s = {}, {}
+    for name, (_, fn) in calls.items():
+        times = []
+        for _ in range(2):                  # first call, then warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            single[name] = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        single_s[name] = times
+
+    # --- the group, then the path once, counted ------------------------------
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = mesh_mod.make_mesh(1, device=dev)
+            # the first collective sets the communicator up
+            mesh_mod.gather(mesh, torch.zeros(1, dtype=torch.int64,
+                                              device=dev))
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            backend = str(dist.get_backend())
+            world = mesh_mod.size(mesh)
+            log(f"phase parallel group setup ({backend}, world size {world}) "
+                f"{setup_s:.6f} s")
+
+            def lde_commit():
+                cap, lde = dist_pipeline.dist_lde_commit(
+                    mesh, c_one, log_n, RATE_BITS, PARALLEL_LEAF_WIDTH,
+                    CAP_HEIGHT)
+                return lde, cap
+
+            def lde_cap():
+                lde = dist_ntt.dist_batched_coset_lde(mesh, c_polys, log_n,
+                                                      RATE_BITS)
+                leaves = mesh_mod.gather(mesh, lde).T     # (2^log_m, 64)
+                return lde, dist_merkle.dist_merkle_cap(mesh, leaves,
+                                                        CAP_HEIGHT)
+
+            dist_calls = {
+                "dist_lde_commit": lde_commit,
+                "dist_batched_coset_lde + dist_merkle_cap": lde_cap,
+                "dist_ntt": lambda: (dist_ntt.dist_ntt(
+                    mesh, c_ntt, PARALLEL_NTT_LOG_N), None)}
+            zero_launches()
+            torch.cuda.reset_peak_memory_stats()
+            got, dist_s = {}, {}
+            for name, fn in dist_calls.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got[name] = fn()
+                torch.cuda.synchronize()
+                dist_s[name] = time.perf_counter() - t0
+            timer = StepTimer()
+            timer.start()
+            t0 = timer.last
+            proofs = prover.prove_batch(prove_data, prove_pws, on_step=timer,
+                                        mesh=mesh)
+            torch.cuda.synchronize()
+            mesh_prove_s = time.perf_counter() - t0
+            # after the slice's last step: the proofs' plain form, the
+            # object all-gather and the proofs rebuilt
+            gather_s = mesh_prove_s - sum(timer.steps.values())
+            launches = all_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"parallel path launches {json.dumps(launches)}; peak device "
+                f"memory {peak:.3f} GiB")
+
+            # outside the counted run: this rank's block of each
+            # single-device result, the replicated caps whole; then each
+            # distributed call again (warm)
+            for name, (what, _) in calls.items():
+                (lde, cap), (want_lde, want_cap) = got[name], single[name]
+                require_equal(lde, mesh_mod.shard(mesh, want_lde),
+                              f"{name}: rank {mesh_mod.rank(mesh)}'s block "
+                              f"of the {what}")
+                if cap is not None:
+                    require_equal(cap, want_cap, f"{name}: the cap of the "
+                                  f"{what}")
+                del lde, cap, want_lde, want_cap
+                got[name] = single[name] = None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dist_calls[name]()
+                torch.cuda.synchronize()
+                warm_s = time.perf_counter() - t0
+                runs.append({"name": name, "what": what,
+                             "dist_s": dist_s[name], "dist_warm_s": warm_s,
+                             "single_s": single_s[name][0],
+                             "single_warm_s": single_s[name][1]})
+                log(f"phase parallel {name}: {dist_s[name]:.6f} s (warm "
+                    f"{warm_s:.6f} s); single device "
+                    f"{single_s[name][0]:.6f} s (warm "
+                    f"{single_s[name][1]:.6f} s)")
+            if [convert.proof_to_plain(p) for p in proofs] != prove_plain:
+                raise AssertionError("prove_batch(mesh=) proofs differ from "
+                                     "the unsharded batch's")
+            steps = {k: round(v, 6) for k, v in timer.steps.items()}
+            log(f"check prove_batch(mesh=) B={len(prove_pws)} == the prove "
+                f"path's batch, field for field: {mesh_prove_s:.6f} s (the "
+                f"proofs' gather {gather_s:.6f} s; steps {json.dumps(steps)}"
+                f"); single device {prove_s:.6f} s")
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    line = {"world_size": world, "backend": backend, "setup_s": setup_s,
+            "runs": runs,
+            "prove_batch": {"batch": len(prove_pws), "dist_s": mesh_prove_s,
+                            "gather_s": gather_s, "steps_s": timer.steps,
+                            "single_s": prove_s},
+            "peak_gib": peak, "launches": launches,
+            "kernels": kernel_times}
+    return line, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2519,6 +2821,9 @@ def main() -> int:
         "public_inputs": full.common.num_public_inputs,
         "runs": prove_runs, "verify_s": verify_s}
     leaf_proof = warm
+    # the parallel phase's prove_batch(mesh=) is held against this batch
+    batch_plain = [convert.proof_to_plain(p) for p in batch_proofs]
+    batch_s = prove_runs[-1]["wall_s"]
     del full_proofs, one, batch_proofs, alone
     torch.cuda.empty_cache()
 
@@ -2697,6 +3002,14 @@ def main() -> int:
     log(f"sighash path launches {json.dumps(path_launches['sighash'])}")
     require_launched(path_launches["sighash"], SIGHASH_KERNELS, "sighash")
     torch.cuda.empty_cache()
+
+    # --- the parallel path, counted (last: nothing forks or starts a
+    # process while its process group is live) --------------------------------
+    parallel_line, path_launches["parallel"] = parallel_phase(
+        dev, all_launches, zero_launches, full,
+        [witness(s) for s in range(1, PROVE_BATCH + 1)], batch_plain,
+        batch_s)
+    require_launched(path_launches["parallel"], PARALLEL_KERNELS, "parallel")
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in path_launches["commit"]}
 
@@ -2914,6 +3227,7 @@ def main() -> int:
     log(json.dumps({"prove": prove_line}))
     log(json.dumps({"recursion": recursion_line}))
     log(json.dumps({"rollup": rollup_line}))
+    log(json.dumps({"parallel": parallel_line}))
     log(json.dumps({"coset_lde": ldes, "prove_kernels": prove_kernels,
                     "recursion_kernels": recursion_kernels,
                     "rollup_kernels": rollup_kernels}))

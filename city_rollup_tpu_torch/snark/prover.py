@@ -18,11 +18,13 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import convert
 from ..core import fri, gl64, gl64_ext, ntt, poseidon_host
 from ..core.challenger import Challenger
 from ..core.merkle import BatchedMerkleTree
+from ..parallel import mesh as device_mesh
 from . import device_passes
 from .circuit import (CircuitData, PartialWitness, generate_witness,
                       interp_and_lde)
@@ -205,7 +207,7 @@ def _challenge_major(per_proof, nc: int) -> list:
 
 
 def prove_batch(data: CircuitData, pws: list[PartialWitness],
-                on_step=None) -> list[Proof]:
+                on_step=None, mesh=None) -> list[Proof]:
     """Prove B same-circuit witnesses together. Every polynomial-sized pass
     (LDE NTTs, Merkle levels, constraint/quotient evaluation, openings,
     reduced codeword, FRI folds) carries a leading batch axis: one pass for
@@ -216,7 +218,14 @@ def prove_batch(data: CircuitData, pws: list[PartialWitness],
     on_step(name), if given, is called as each step ends: "witness",
     "wires commit", "permutation pass", "Z commit", "quotient pass",
     "quotient commit", "openings", "reduced codeword", "FRI",
-    "initial openings"."""
+    "initial openings".
+
+    With a ``parallel.mesh.make_mesh`` mesh (SPMD: every rank calls with
+    the same witnesses and its own device's circuit data), each rank
+    proves its contiguous slice of the batch on its device, and every rank
+    returns all B proofs, in order (``_prove_sharded``)."""
+    if mesh is not None:
+        return _prove_sharded(data, pws, on_step, mesh)
     step = on_step or (lambda name: None)
     B = len(pws)
     common, pd, vd = data.common, data.prover, data.verifier
@@ -378,3 +387,25 @@ def prove_batch(data: CircuitData, pws: list[PartialWitness],
             fri_proof=fri_proof, initial_openings=initial))
     step("initial openings")
     return proofs
+
+
+def _prove_sharded(data: CircuitData, pws: list[PartialWitness], on_step,
+                   mesh) -> list[Proof]:
+    """The batch axis over the mesh: pure data parallelism, since each
+    proof's transcript is its own, so the proofs equal the unsharded
+    batch's. The slices' proofs are gathered through their plain form
+    (one object all-gather)."""
+    d = device_mesh.size(mesh)
+    if len(pws) % d:
+        raise ValueError(f"a batch of {len(pws)} does not divide the "
+                         f"{d}-device mesh")
+    if data.prover.device.type != mesh.device_type:
+        raise ValueError(f"circuit data on {data.prover.device}, mesh over "
+                         f"{mesh.device_type}")
+    k = len(pws) // d
+    r = device_mesh.rank(mesh)
+    mine = prove_batch(data, pws[r * k:(r + 1) * k], on_step) if k else []
+    parts = [None] * d
+    dist.all_gather_object(parts, [convert.proof_to_plain(p) for p in mine],
+                           group=device_mesh.group(mesh))
+    return [convert.proof_from_plain(p) for part in parts for p in part]

@@ -177,6 +177,10 @@ def test_port_imports_with_jax_blocked():
             for m in ("hashes", "secp256k1", "felts")} <= set(mods)
     assert {"city_rollup_tpu_torch.snark",
             "city_rollup_tpu_torch.crypto"} <= set(mods)
+    assert {"city_rollup_tpu_torch.parallel"} | {
+        f"city_rollup_tpu_torch.parallel.{m}"
+        for m in ("mesh", "dist_ntt", "dist_merkle",
+                  "dist_pipeline")} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['jaxlib'] = None\n"
